@@ -12,8 +12,10 @@ Layering (bottom → top):
 - ``models``   — Sequence / Position / Unitig / UnitigGraph data model
 - ``device``   — device resolution and the kernels' launch counters
 - ``ops``      — device grouping (the sort-network kernel), k-mer index,
-                 chains, end repair, graph assembly
-- ``commands`` — the ported subcommands: compress, decompress
+                 chains, end repair, graph assembly, cluster distances,
+                 the dotplot match grids (two match-grid kernels)
+- ``commands`` — the ported subcommands: compress, decompress, cluster,
+                 dotplot
 - ``cli``      — argparse front-end
 """
 

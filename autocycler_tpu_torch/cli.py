@@ -1,8 +1,9 @@
 """Command-line interface of the port: the subcommands ported so far, with
 the JAX package's flags and defaults (reference main.rs).
 
-``compress`` runs its device work on CUDA; without a CUDA device it fails
-with ``Error: ...`` and exit code 1. ``decompress`` is host code only.
+``compress``, ``cluster`` and ``dotplot`` run their device work on CUDA;
+without a CUDA device they fail with ``Error: ...`` and exit code 1.
+``decompress`` is host code only.
 """
 
 from __future__ import annotations
@@ -23,6 +24,14 @@ def build_parser() -> argparse.ArgumentParser:
                         version=f"Autocycler-TPU-torch v{__version__}")
     sub = parser.add_subparsers(dest="command", required=True)
 
+    p = sub.add_parser("cluster",
+                       help="cluster contigs in the unitig graph based on similarity")
+    p.add_argument("-a", "--autocycler_dir", required=True)
+    p.add_argument("--cutoff", type=float, default=0.2)
+    p.add_argument("--min_assemblies", type=int)
+    p.add_argument("--max_contigs", type=int, default=25)
+    p.add_argument("--manual")
+
     p = sub.add_parser("compress", help="compress input contigs into a unitig graph")
     p.add_argument("-i", "--assemblies_dir", required=True)
     p.add_argument("-a", "--autocycler_dir", required=True)
@@ -34,17 +43,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-i", "--in_gfa", required=True)
     p.add_argument("-o", "--out_dir")
     p.add_argument("-f", "--out_file")
+
+    p = sub.add_parser("dotplot",
+                       help="generate an all-vs-all dotplot from a unitig graph")
+    p.add_argument("-i", "--input", required=True)
+    p.add_argument("-o", "--out_png", required=True)
+    p.add_argument("--res", type=int, default=2000)
+    p.add_argument("--kmer", type=int, default=32)
+    p.add_argument("--grid-mode", dest="grid_mode", default="auto",
+                   choices=["auto", "host", "device"],
+                   help="k-mer matching: auto and host run the sort-join "
+                        "(the sort-network kernel groups the k-mers on the "
+                        "card); device counts matches per tile with the "
+                        "word-compare match-grid kernel on the card, then "
+                        "refines the nonzero tiles exactly")
     return parser
 
 
 def dispatch(args) -> None:
-    if args.command == "compress":
+    if args.command == "cluster":
+        from .commands.cluster import cluster
+        cluster(args.autocycler_dir, args.cutoff, args.min_assemblies,
+                args.max_contigs, args.manual)
+    elif args.command == "compress":
         from .commands.compress import compress
         compress(args.assemblies_dir, args.autocycler_dir, args.kmer,
                  args.max_contigs, threads=args.threads)
     elif args.command == "decompress":
         from .commands.decompress import decompress
         decompress(args.in_gfa, args.out_dir, args.out_file)
+    elif args.command == "dotplot":
+        from .commands.dotplot import dotplot
+        dotplot(args.input, args.out_png, args.res, args.kmer, args.grid_mode)
 
 
 def main(argv=None) -> int:

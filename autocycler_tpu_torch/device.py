@@ -4,8 +4,8 @@ Entry points run on CUDA unless the caller asks for the CPU (the tests do).
 There is no fallback: a request for CUDA on a machine without a card is an
 error, never a silent CPU run.
 
-Every hand-written kernel's wrapper calls :func:`record_launch` once per
-launch of its kernel, with CUDA events around the launch, so a run can show
+Every hand-written kernel's wrapper launches it through :func:`launch`,
+which counts the launch and puts CUDA events around it, so a run can show
 that its main path went through the kernels and how long they took.
 """
 
@@ -18,7 +18,8 @@ import torch
 from .utils import quit_with_error
 
 # kernel name -> launches since the last reset_counts()
-launches: Dict[str, int] = {"sortnet_pack_rank": 0}
+launches: Dict[str, int] = {"sortnet_pack_rank": 0, "dotplot_match_grid": 0,
+                             "dotplot_match_grid_mxu": 0}
 _events: Dict[str, List[Tuple[torch.cuda.Event, torch.cuda.Event]]] = {
     name: [] for name in launches}
 
@@ -34,6 +35,23 @@ def resolve_device(device=None) -> torch.device:
     elif dev.type != "cpu":
         quit_with_error(f"unsupported device {dev}: use cuda or cpu")
     return dev
+
+
+def launch(name: str, device: torch.device, fn, *args) -> None:
+    """One launch of kernel ``name`` through its C entry point ``fn(*args,
+    stream)`` on the current stream of ``device``, timed by CUDA events and
+    counted. Raises on a launch the runtime refused (``fn`` returns its
+    CUDA error)."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        err = fn(*args, stream.cuda_stream)
+        end.record(stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+    record_launch(name, start, end)
 
 
 def record_launch(name: str, start: torch.cuda.Event,

@@ -2,15 +2,17 @@
 
 Parity target: reference metrics.rs:24-273 — one dataclass per pipeline stage
 and a save_to_yaml helper. YAML is emitted without external dependencies (the
-structures are simple: scalars, lists, nested records). This slice of the port
-carries the compress metrics only.
+structures are simple: scalars, lists, nested records). The port carries the
+metrics of its ported stages: compress and cluster.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import List
+from typing import Dict, List, Tuple
+
+from .utils import mad, median
 
 
 def _yaml_scalar(v) -> str:
@@ -80,3 +82,76 @@ class InputAssemblyMetrics(MetricsBase):
     compressed_unitig_count: int = 0
     compressed_unitig_total_length: int = 0
     input_assembly_details: List[InputAssemblyDetails] = field(default_factory=list)
+
+
+@dataclass
+class ClusteringMetrics(MetricsBase):
+    pass_cluster_count: int = 0
+    fail_cluster_count: int = 0
+    pass_contig_count: int = 0
+    fail_contig_count: int = 0
+    pass_contig_fraction: float = 0.0
+    fail_contig_fraction: float = 0.0
+    cluster_balance_score: float = 0.0
+    cluster_tightness_score: float = 0.0
+    overall_clustering_score: float = 0.0
+
+    def calculate_fractions(self) -> None:
+        total = self.pass_contig_count + self.fail_contig_count
+        if total > 0:
+            self.pass_contig_fraction = self.pass_contig_count / total
+            self.fail_contig_fraction = self.fail_contig_count / total
+
+    def calculate_scores(self, cluster_filenames: Dict[int, List[str]],
+                         pass_cluster_stats: List[Tuple[float, int]]) -> None:
+        self.calculate_balance(cluster_filenames)
+        self.calculate_tightness(pass_cluster_stats)
+        self.overall_clustering_score = (self.cluster_balance_score
+                                         + self.cluster_tightness_score) / 2.0
+
+    def calculate_balance(self, cluster_filenames: Dict[int, List[str]]) -> None:
+        """How evenly input files are distributed over clusters: per cluster,
+        each known filename scores 1.0 iff it appears exactly once; cluster
+        scores are size-weighted-averaged (reference metrics.rs:140-168)."""
+        all_filenames = {f for cluster in cluster_filenames.values() for f in cluster}
+        if not all_filenames:
+            self.cluster_balance_score = 0.0
+            return
+        weighted_sum, total_weight = 0.0, 0.0
+        for cluster in cluster_filenames.values():
+            counts: Dict[str, int] = {}
+            for f in cluster:
+                counts[f] = counts.get(f, 0) + 1
+            score = sum(1.0 if counts.get(f, 0) == 1 else 0.0
+                        for f in all_filenames) / len(all_filenames)
+            weighted_sum += score * len(cluster)
+            total_weight += len(cluster)
+        self.cluster_balance_score = weighted_sum / total_weight
+
+    def calculate_tightness(self, pass_cluster_stats: List[Tuple[float, int]]) -> None:
+        """Size-weighted mean of 1 - sqrt(cluster distance)
+        (reference metrics.rs:170-187)."""
+        if not pass_cluster_stats:
+            self.cluster_tightness_score = 0.0
+            return
+        weighted_sum = sum((1.0 - distance ** 0.5) * size
+                           for distance, size in pass_cluster_stats)
+        total_weight = sum(size for _, size in pass_cluster_stats)
+        self.cluster_tightness_score = weighted_sum / total_weight
+
+
+@dataclass
+class UntrimmedClusterMetrics(MetricsBase):
+    untrimmed_cluster_size: int = 0
+    untrimmed_cluster_lengths: List[int] = field(default_factory=list)
+    untrimmed_cluster_median: int = 0
+    untrimmed_cluster_mad: int = 0
+    untrimmed_cluster_distance: float = 0.0
+
+    @classmethod
+    def new(cls, sequence_lengths: List[int], distance: float):
+        return cls(untrimmed_cluster_size=len(sequence_lengths),
+                   untrimmed_cluster_lengths=sequence_lengths,
+                   untrimmed_cluster_median=median(sequence_lengths),
+                   untrimmed_cluster_mad=mad(sequence_lengths),
+                   untrimmed_cluster_distance=distance)

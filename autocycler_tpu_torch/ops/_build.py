@@ -23,7 +23,7 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("sortnet",)
+SOURCES = ("sortnet", "match_grid")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

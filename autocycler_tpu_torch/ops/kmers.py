@@ -80,6 +80,13 @@ def group_windows_full(codes: np.ndarray, starts: np.ndarray, k: int,
     return _to_host(scatter_gid(order, gid_sorted)), _to_host(order)
 
 
+def window_gids(codes: np.ndarray, starts: np.ndarray, k: int,
+                device=None) -> torch.Tensor:
+    """Per-window dense group ids (int32), left on the device."""
+    codes_d, starts_d = _upload(codes, starts, device)
+    return scatter_gid(*rank_windows(codes_d, starts_d, k))
+
+
 def group_windows(codes: np.ndarray, starts: np.ndarray, k: int,
                   device=None) -> Tuple[np.ndarray, np.ndarray]:
     """(order, gid_sorted) view of :func:`group_windows_full`."""
@@ -150,7 +157,7 @@ class KmerIndex:
     first_occ: np.ndarray        # (U,) smallest occurrence per group
     occ_sorted: np.ndarray       # (M,) occurrences grouped by kid
     group_start: np.ndarray      # (U+1,) boundaries into occ_sorted
-    device: torch.device = torch.device("cpu")
+    device: torch.device         # where the later device stages run
 
     # ---- occurrence coordinate helpers (vectorised) ----
 

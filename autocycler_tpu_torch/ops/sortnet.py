@@ -141,17 +141,8 @@ def pack_rank_cuda(codes: torch.Tensor, starts: torch.Tensor,
         return empty, empty.clone()
     N, rows, log_b = network_shape(n, k)
     keys = torch.empty((rows, N), dtype=torch.int32, device=codes.device)
-    fn = _lib()
-    stream = torch.cuda.current_stream(codes.device)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record(stream)
-    err = fn(codes.data_ptr(), starts.data_ptr(), n, k, keys.data_ptr(), N,
-             rows, log_b, stream.cuda_stream)
-    end.record(stream)
-    if err != 0:
-        raise RuntimeError(f"sortnet kernel launch failed: CUDA error {err}")
-    _device.record_launch(KERNEL, start, end)
+    _device.launch(KERNEL, codes.device, _lib(), codes.data_ptr(),
+                   starts.data_ptr(), n, k, keys.data_ptr(), N, rows, log_b)
     order = keys[rows - 1, :n].clone()
     gid_sorted = _gids(list(keys[:rows - 1, :n]))
     return order, gid_sorted

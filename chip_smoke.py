@@ -4,18 +4,27 @@
 
 Phases (any failure exits non-zero, and the result lines are not printed):
 
-1. build   — compile every kernel under autocycler_tpu_torch/csrc with nvcc.
+1. build   — compile every kernel under autocycler_tpu_torch/csrc with nvcc,
+             one nvcc per source, all at once.
 2. kernels — hold each kernel against its plain PyTorch version on the card
              (exact equality: the outputs are integers).
 3. main    — the headline configuration (24 assemblies of a 6 Mbp chromosome
              + 120 kb plasmid, seed 7) through the port's CLI: compress at
              k=51, then decompress, which must restore the input FASTAs byte
-             for byte; every kernel of the path must have been launched.
-             A small input is also compressed on the card and on the CPU
-             (the kernels' plain versions), which must write the same bytes.
-4. timing  — each kernel at the shapes the main path gave it: the kernel, its
-             plain version and a PyTorch library yardstick, beside the least
-             time the card's memory rate allows.
+             for byte; then cluster (2 QC-pass clusters), the plasmid
+             cluster's dotplot in auto and in device grid mode (identical
+             PNGs) and the chromosome cluster's dotplot (24 x 6 Mbp, 576
+             pairs) in auto mode. Each path's kernels
+             must have been launched in it. A small input also goes through
+             compress, cluster and dotplot on the card and on the CPU (the
+             kernels' plain versions), which must write the same bytes.
+4. grid    — the match-grid throughput entry (benchmark_gcells) at 524,288^2
+             and k=32 for the word kernel and both product kernels; at equal
+             tiles the three grids must equal one another and the plain
+             version.
+5. timing  — each kernel at the shapes its path gave it: the kernel, its
+             plain version and a PyTorch library yardstick where one call
+             computes the function, beside the least time the card allows.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. Imports neither jax nor the JAX package.
@@ -37,13 +46,34 @@ import torch
 
 REPO = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
+BF16_FLOPS = 989e12                # H100 SXM tensor cores, dense (data sheet)
+INT8_OPS = 1979e12
+# Instructions on the CUDA cores: 128 lanes per SM a clock (4 schedulers x 32
+# lanes), x 132 SMs x 1.98 GHz boost = 33.5e12/s, the data sheet's float32
+# rate (67 TFLOP/s) counted as one instruction per FMA. No integer or logic
+# instruction issues faster.
+INT_OPS = 132 * 128 * 1.98e9
+GRID_N = 524_288                   # the match-grid entry's own sizes
+GRID_K = 32
 HEADLINE = dict(n_assemblies=24, chromosome_len=6_000_000,
                 plasmid_len=120_000, n_snps=600, seed=7)
-KERNEL_SOURCES = {"sortnet_pack_rank": {
-    "route": "cuda",
-    "source": "autocycler_tpu_torch/csrc/sortnet.cu",
-    "replaces": "autocycler_tpu/ops/sortnet.py:161",
-}}
+KERNEL_SOURCES = {
+    "sortnet_pack_rank": {
+        "route": "cuda",
+        "source": "autocycler_tpu_torch/csrc/sortnet.cu",
+        "replaces": "autocycler_tpu/ops/sortnet.py:161",
+    },
+    "dotplot_match_grid": {
+        "route": "cuda",
+        "source": "autocycler_tpu_torch/csrc/match_grid.cu",
+        "replaces": "autocycler_tpu/ops/dotplot_pallas.py:58",
+    },
+    "dotplot_match_grid_mxu": {
+        "route": "cuda",
+        "source": "autocycler_tpu_torch/csrc/match_grid.cu",
+        "replaces": "autocycler_tpu/ops/dotplot_pallas.py:219",
+    },
+}
 
 
 def log(*args) -> None:
@@ -63,6 +93,11 @@ def phase_build() -> None:
 
 
 def phase_kernels() -> None:
+    kernels_sortnet()
+    kernels_match_grid()
+
+
+def kernels_sortnet() -> None:
     """pack_rank against pack_rank_plain, on the card, exact."""
     from autocycler_tpu_torch.ops import sortnet
     dev = torch.device("cuda")
@@ -98,34 +133,125 @@ def phase_kernels() -> None:
         f"{len(cases)} cases (exact)")
 
 
+def _shared_words(rng, n_a: int, n_b: int, k: int):
+    """Packed k-mer words of a random A and of a B that repeats a chunk of
+    A and of A's reverse complement, so the counts are non-zero."""
+    from autocycler_tpu_torch.ops.dotplot_grid import pack_2bit_words
+    a = rng.integers(1, 5, size=n_a + k - 1).astype(np.uint8)
+    m = n_b + k - 1
+    b = rng.integers(1, 5, size=m).astype(np.uint8)
+    if n_a and n_b:
+        take = min(len(a), m // 2)
+        b[:take] = a[:take]
+        rc = (5 - a[::-1][:m - take]).astype(np.uint8)
+        b[take:take + len(rc)] = rc
+    return (torch.from_numpy(pack_2bit_words(a, k)).cuda(),
+            torch.from_numpy(pack_2bit_words(b, k)).cuda())
+
+
+def kernels_match_grid() -> None:
+    """Both match-grid kernels (the word compare, and the +-1 product in
+    bf16 and int8) against their plain versions on the card, exact, over
+    k, n and tile shapes, edge tiles, poly-T and one empty side."""
+    from autocycler_tpu_torch.ops import dotplot_grid as g
+    rng = np.random.default_rng(12)
+    ks = (10, 12, 16, 17, 31, 32, 33, 55, 100)
+    tiles = ((128, 128), (256, 256), (1024, 1024), (2048, 2048), (2048, 4096))
+    cases = []
+    for ti, (ta, tb) in enumerate(tiles):
+        for ni, n in enumerate(("empty", 1, "t-1", "t", "t+1", "3t+7",
+                                100_003)):
+            k = ks[(7 * ti + ni) % len(ks)]
+            size = {"empty": 0, "t-1": ta - 1, "t": ta, "t+1": ta + 1,
+                    "3t+7": 3 * ta + 7}.get(n, n)
+            n_a, n_b = size, (size if n != "empty" else 3 * tb + 7)
+            if n == "empty" and ti % 2:
+                n_a, n_b = n_b, n_a
+            cases.append((f"k={k} n={n_a}x{n_b} tiles {ta}x{tb}", k, ta, tb,
+                          *_shared_words(rng, n_a, n_b, k)))
+    for k in (1, 5, 128, 200, 256):        # the product kernels take k <= 256
+        cases.append((f"k={k} n=391x300 tiles 128x256", k, 128, 256,
+                      *_shared_words(rng, 391, 300, k)))
+    poly_t = torch.full((1, 3 * 128 + 7), -1, dtype=torch.int32).cuda()
+    cases.append(("poly-T k=16 n=391 tiles 128x128", 16, 128, 128,
+                  poly_t, poly_t))
+    nonzero = 0
+    for label, k, ta, tb, a, b in cases:
+        want = g.match_grid_plain(a, b, ta, tb)
+        got = {"word": g.match_grid(a, b, ta, tb)}
+        for dtype in g.IN_DTYPES:
+            got[f"mxu {dtype}"] = g.match_grid_mxu(a, b, k, tile_a=ta,
+                                                   tile_b=tb, in_dtype=dtype)
+            plain = g.match_grid_mxu_plain(a, b, k, tile_a=ta, tile_b=tb,
+                                           in_dtype=dtype)
+            if not torch.equal(plain, want):
+                raise AssertionError(f"[kernels] {label}: the plain product "
+                                     f"({dtype}) differs from the plain "
+                                     "word compare")
+        torch.cuda.synchronize()
+        for name, grid in got.items():
+            if not torch.equal(grid, want):
+                raise AssertionError(
+                    f"[kernels] {label}: {name} kernel differs from its plain "
+                    f"version ({int((grid - want).abs().max())} at most)")
+        nonzero += int(want.sum() > 0)
+    if nonzero < len(cases) // 2:
+        raise AssertionError(f"[kernels] only {nonzero} match-grid cases had "
+                             "any match")
+    log(f"[kernels] dotplot_match_grid and dotplot_match_grid_mxu (bf16, "
+        f"int8) equal their plain versions in {len(cases)} cases (exact; "
+        f"{nonzero} with matches)")
+
+
 def _same_files(a: Path, b: Path) -> bool:
-    names = sorted(p.name for p in a.iterdir())
-    return (names == sorted(p.name for p in b.iterdir())
+    """The same files, byte for byte, in the two directory trees."""
+    names = sorted(str(p.relative_to(a)) for p in a.rglob("*") if p.is_file())
+    return (names == sorted(str(p.relative_to(b)) for p in b.rglob("*")
+                            if p.is_file())
             and all((a / n).read_bytes() == (b / n).read_bytes() for n in names))
+
+
+def small_pipeline(work: Path) -> None:
+    """compress -> cluster -> dotplot of a small input on the card and on
+    the CPU (the kernels' plain versions): the same bytes everywhere."""
+    from synthetic import make_assemblies
+
+    from autocycler_tpu_torch.commands.cluster import cluster
+    from autocycler_tpu_torch.commands.compress import compress
+    from autocycler_tpu_torch.commands.dotplot import dotplot
+    small = make_assemblies(work / "small", n_assemblies=4,
+                            chromosome_len=30_000, plasmid_len=4_000,
+                            n_snps=10, seed=3)
+    for dev in ("cuda", "cpu"):
+        out = work / f"small_{dev}"
+        with contextlib.redirect_stderr(io.StringIO()):
+            compress(small, out, 51, device=dev)
+            cluster(out, device=dev)
+            for c in sorted((out / "clustering" / "qc_pass").iterdir()):
+                gfa = c / "1_untrimmed.gfa"
+                dotplot(gfa, c / "auto.png", device=dev)
+                if c.name == "cluster_002":
+                    dotplot(gfa, c / "device.png", grid_mode="device",
+                            device=dev)
+    if not _same_files(work / "small_cuda", work / "small_cpu"):
+        raise AssertionError("[main] small compress/cluster/dotplot on the "
+                             "card differs from the CPU's plain versions")
+    plots = sorted(p.name for p in (work / "small_cuda").rglob("*.png"))
+    log(f"[main] small compress, cluster and dotplot ({len(plots)} PNGs): "
+        "card and CPU outputs byte-identical")
 
 
 def phase_main(work: Path):
     """Headline compress + decompress through the CLI, with the kernels'
     inputs captured for the timing phase."""
     sys.path.insert(0, str(REPO / "tests"))
-    from synthetic import make_assemblies, make_assemblies_fast
+    from synthetic import make_assemblies_fast
 
     from autocycler_tpu_torch import cli, device
-    from autocycler_tpu_torch.commands.compress import compress
     from autocycler_tpu_torch.ops import sortnet
     from autocycler_tpu_torch.utils import timing
 
-    # a small input through the card and through the CPU's plain versions
-    small = make_assemblies(work / "small", n_assemblies=4,
-                            chromosome_len=30_000, plasmid_len=4_000,
-                            n_snps=10, seed=3)
-    with contextlib.redirect_stderr(io.StringIO()):
-        compress(small, work / "small_gpu", 51, device="cuda")
-        compress(small, work / "small_cpu", 51, device="cpu")
-    if not _same_files(work / "small_gpu", work / "small_cpu"):
-        raise AssertionError("[main] small compress on the card differs "
-                             "from the CPU's plain versions")
-    log("[main] small compress: card and CPU outputs byte-identical")
+    small_pipeline(work)
 
     t0 = time.perf_counter()
     asm = make_assemblies_fast(work / "headline", **HEADLINE)
@@ -153,7 +279,7 @@ def phase_main(work: Path):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(device.launches)
-        kernel_ms = {n: device.kernel_ms(n) for n in launches}
+        kernel_ms = {n: device.kernel_ms(n) for n, c in launches.items() if c}
     finally:
         sortnet.pack_rank_cuda = real
     if rc != 0:
@@ -164,9 +290,8 @@ def phase_main(work: Path):
         + json.dumps(stages))
     log(f"[main] kernel launches {launches}, kernel time (ms, CUDA events) "
         + json.dumps(kernel_ms))
-    missing = [n for n, c in launches.items() if c == 0]
-    if missing:
-        raise AssertionError(f"[main] kernels never launched: {missing}")
+    if launches["sortnet_pack_rank"] == 0:
+        raise AssertionError("[main] compress never launched the sort network")
 
     recon = work / "recon"
     t0 = time.perf_counter()
@@ -182,13 +307,104 @@ def phase_main(work: Path):
         f"{(out / 'input_assemblies.yaml').read_text().count('- name:')} "
         "contigs in input_assemblies.yaml")
     profile_compress(asm, work / "out_profiled", out)
-    return launches, captured
+    paths, plasmid_pair = cluster_and_dotplot(work, out)
+    return {"compress": launches, **paths}, captured, plasmid_pair
 
 
-def profile_compress(asm: Path, out: Path, expected: Path) -> None:
-    """Compress once more under torch.profiler: the device's busy time
-    (kernels and copies) against the run's wall time. The profiled run
-    must write the same bytes as the counted one."""
+def run_cli(label: str, argv):
+    """One CLI call with every launch count set to 0 just before it and
+    read just after. Returns the launches."""
+    from autocycler_tpu_torch import cli, device
+    from autocycler_tpu_torch.utils import timing
+
+    device.reset_counts()
+    timing.reset()
+    stderr = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(stderr):
+        rc = cli.main([str(a) for a in argv])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(device.launches)
+    kernel_ms = {n: device.kernel_ms(n) for n, c in launches.items() if c}
+    if rc != 0:
+        raise RuntimeError(f"[main] {label} exited {rc}:\n"
+                           f"{stderr.getvalue()[-3000:]}")
+    log(f"[main] {label}: wall {wall} s, launches {launches}, kernel time "
+        f"(ms, CUDA events) {json.dumps(kernel_ms)}, substages (s) "
+        f"{json.dumps(timing.seconds)}")
+    return launches
+
+
+def _cluster_median(cluster_dir: Path) -> int:
+    for line in (cluster_dir / "1_untrimmed.yaml").read_text().splitlines():
+        if line.startswith("untrimmed_cluster_median:"):
+            return int(line.split(":")[1])
+    raise AssertionError(f"[main] no median in {cluster_dir}")
+
+
+def cluster_and_dotplot(work: Path, out: Path):
+    """cluster, then the dotplots: the plasmid cluster in auto and device
+    grid mode (identical PNGs), and the chromosome cluster in auto mode."""
+    from autocycler_tpu_torch.ops import dotplot_grid
+
+    paths = {"cluster": run_cli("cluster", ["cluster", "-a", out])}
+    qc_pass = sorted((out / "clustering" / "qc_pass").iterdir())
+    if len(qc_pass) != 2:
+        raise AssertionError(f"[main] cluster: {len(qc_pass)} QC-pass "
+                             "clusters, expected 2")
+    log(f"[main] cluster: {len(qc_pass)} QC-pass clusters")
+    plasmid = min(qc_pass, key=_cluster_median) / "1_untrimmed.gfa"
+    chromosome = max(qc_pass, key=_cluster_median) / "1_untrimmed.gfa"
+
+    pngs = {mode: work / f"plasmid_{mode}.png" for mode in ("auto", "device")}
+    paths["dotplot auto"] = run_cli(
+        "plasmid cluster dotplot, auto",
+        ["dotplot", "-i", plasmid, "-o", pngs["auto"]])
+    pairs = []
+    real = dotplot_grid.match_grid_cuda
+
+    def capture(a, b, tile_a, tile_b):
+        if not pairs:
+            pairs.append((a, b, tile_a, tile_b))
+        return real(a, b, tile_a, tile_b)
+
+    dotplot_grid.match_grid_cuda = capture
+    try:
+        paths["dotplot device"] = run_cli(
+            "plasmid cluster dotplot, --grid-mode device",
+            ["dotplot", "-i", plasmid, "-o", pngs["device"],
+             "--grid-mode", "device"])
+    finally:
+        dotplot_grid.match_grid_cuda = real
+    if paths["dotplot auto"]["sortnet_pack_rank"] == 0 \
+            or paths["dotplot device"]["dotplot_match_grid"] == 0:
+        raise AssertionError("[main] a dotplot path launched no kernel")
+    if pngs["auto"].read_bytes() != pngs["device"].read_bytes():
+        raise AssertionError("[main] auto and device-grid PNGs differ")
+    log(f"[main] plasmid cluster dotplot: auto and device-grid PNGs "
+        f"byte-identical ({pngs['auto'].stat().st_size} bytes)")
+    profile_cli("plasmid cluster dotplot, --grid-mode device",
+                ["dotplot", "-i", plasmid, "-o", work / "profiled.png",
+                 "--grid-mode", "device"])
+    if (work / "profiled.png").read_bytes() != pngs["device"].read_bytes():
+        raise AssertionError("[profile] the profiled dotplot differs")
+
+    # every pair is a 6 Mbp x 6 Mbp sort-join; the device grid would be
+    # 3.6e13 cells a pair, past MAX_DEVICE_CELLS, so auto mode only
+    paths["dotplot chromosomes"] = run_cli(
+        "chromosome cluster dotplot, auto",
+        ["dotplot", "-i", chromosome, "-o", work / "chromosomes.png"])
+    if paths["dotplot chromosomes"]["sortnet_pack_rank"] == 0:
+        raise AssertionError("[main] the chromosome dotplot launched no "
+                             "kernel")
+    return paths, pairs[0]
+
+
+def profile_cli(label: str, argv) -> None:
+    """Run a CLI call once more under torch.profiler: the device's busy
+    time (kernels and copies) against the run's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -197,26 +413,71 @@ def profile_compress(asm: Path, out: Path, expected: Path) -> None:
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
             as prof, contextlib.redirect_stderr(io.StringIO()):
-        rc = cli.main(["compress", "-i", str(asm), "-a", str(out),
-                       "--kmer", "51"])
+        rc = cli.main([str(a) for a in argv])
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if rc != 0 or not _same_files(out, expected):
-        raise AssertionError("[profile] profiled compress differs from the "
-                             "counted one")
+    if rc != 0:
+        raise AssertionError(f"[profile] {label} exited {rc}")
     by_name = {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
     busy_s = sum(by_name.values()) / 1e6
     if busy_s == 0:
-        log("[profile] device busy time: not measured (no device events)")
+        log(f"[profile] {label}: device busy time not measured (no device "
+            "events)")
         return
-    log(f"[profile] compress wall {wall} s under the profiler, device busy "
+    log(f"[profile] {label}: wall {wall} s under the profiler, device busy "
         f"{busy_s} s (kernels + copies), idle share {1 - busy_s / wall}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     for name, us in top:
         log(f"[profile]   {us / 1e6} s  {name[:100]}")
+
+
+def profile_compress(asm: Path, out: Path, expected: Path) -> None:
+    """The profiled compress must write the same bytes as the counted one."""
+    profile_cli("compress", ["compress", "-i", asm, "-a", out, "--kmer", "51"])
+    if not _same_files(out, expected):
+        raise AssertionError("[profile] profiled compress differs from the "
+                             "counted one")
+
+
+def phase_grid():
+    """The match-grid throughput entry at its own sizes, with the launch
+    counts set to 0 just before and read just after; then, at equal tiles
+    on one input with matches, the three grids and the plain version must
+    be equal."""
+    from autocycler_tpu_torch import device
+    from autocycler_tpu_torch.ops import dotplot_grid as g
+
+    device.reset_counts()
+    for kernel, tile, tile_b in (("vpu", 2048, 4096), ("mxu", 1024, 1024),
+                                 ("mxu8", 1024, 1024)):
+        best, rate = g.benchmark_gcells(n_a=GRID_N, n_b=GRID_N, k=GRID_K,
+                                        tile=tile, tile_b=tile_b,
+                                        kernel=kernel, device="cuda")
+        log(f"[grid] {kernel} {GRID_N}x{GRID_N} k={GRID_K} tiles "
+            f"{tile}x{tile_b}: best {best} s, {rate} Gcells/s")
+    torch.cuda.synchronize()
+    launches = dict(device.launches)
+    log(f"[grid] launches {launches}")
+    if not (launches["dotplot_match_grid"] and
+            launches["dotplot_match_grid_mxu"]):
+        raise AssertionError("[grid] a match-grid kernel was not launched")
+
+    a, b = _shared_words(np.random.default_rng(21), GRID_N, GRID_N, GRID_K)
+    want = g.match_grid_plain(a, b, 1024, 1024)
+    grids = {"vpu": g.match_grid(a, b, 1024, 1024),
+             "mxu": g.match_grid_mxu(a, b, GRID_K, tile=1024),
+             "mxu8": g.match_grid_mxu(a, b, GRID_K, tile=1024,
+                                      in_dtype="int8")}
+    for name, grid in grids.items():
+        if not torch.equal(grid, want):
+            raise AssertionError(f"[grid] {name} differs from the plain "
+                                 "version at 1024x1024 tiles")
+    log(f"[grid] at 1024x1024 tiles vpu, mxu, mxu8 and the plain version "
+        f"agree: {int(want.sum(dtype=torch.int64))} matching cells")
+    return launches, (a, b)
 
 
 def _time_ms(fn, reps: int = 3) -> float:
@@ -234,7 +495,11 @@ def _time_ms(fn, reps: int = 3) -> float:
     return float(np.median(times))
 
 
-def phase_timing(launches, captured):
+def _max_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    return int((got.long() - want.long()).abs().max()) if got.numel() else 0
+
+
+def timing_sortnet(captured):
     from autocycler_tpu_torch.ops import sortnet
 
     shapes = []
@@ -242,8 +507,7 @@ def phase_timing(launches, captured):
         n = len(starts)
         got = sortnet.pack_rank_cuda(codes, starts, k)
         want = sortnet.pack_rank_plain(codes, starts, k)
-        err = max(int((a.long() - b.long()).abs().max()) if n else 0
-                  for a, b in zip(got, want))
+        err = max(_max_err(a, b) for a, b in zip(got, want))
         del got, want
         words = sortnet.pack_words_plain(codes, starts, k)
         if len(words) == 2:
@@ -274,19 +538,128 @@ def phase_timing(launches, captured):
         del words
         shapes.append(shape)
         log(f"[timing] sortnet_pack_rank {json.dumps(shape)}")
+    # per compress: the sums over the main path's launches
+    return {"ms": sum(s["ms"] for s in shapes),
+            "plain_ms": sum(s["plain_ms"] for s in shapes),
+            "bound_ms": sum(s["bound_ms"] for s in shapes), "bound_by": "bytes",
+            "library_ms": sum(s["library_ms"] for s in shapes),
+            "max_abs_err": max(s["max_abs_err"] for s in shapes),
+            "shapes": shapes}
+
+
+def _grid_bytes_ms(a, b, ta, tb) -> float:
+    """Each input word read once, each tile count written once."""
+    ga, gb = -(-a.shape[1] // ta), -(-b.shape[1] // tb)
+    return (4 * (a.numel() + b.numel()) + 4 * ga * gb) / HBM_BYTES_PER_S * 1e3
+
+
+def timing_match_grid(shapes_in):
+    """The word compare per launch. Its bound: W + 1 instructions per cell,
+    the least a cell needs (W word compares chained through one predicate,
+    then one predicated add), at the CUDA cores' issue rate, against the
+    words read once and the counts written once. No one PyTorch call
+    computes tile match counts of packed k-mers (an equality join with
+    per-tile sums), so it has no library time."""
+    from autocycler_tpu_torch.ops import dotplot_grid as g
+
+    shapes = []
+    for label, a, b, ta, tb in shapes_in:
+        W, n_a, n_b = a.shape[0], a.shape[1], b.shape[1]
+        got = g.match_grid_cuda(a, b, ta, tb)
+        want = g.match_grid_plain(a, b, ta, tb)
+        cells = float(n_a) * float(n_b)
+        ops_ms = (W + 1) * cells / INT_OPS * 1e3
+        bytes_ms = _grid_bytes_ms(a, b, ta, tb)
+        shape = {
+            "shape": label, "n_a": n_a, "n_b": n_b, "words": W,
+            "tiles": f"{ta}x{tb}",
+            "ms": _time_ms(lambda: g.match_grid_cuda(a, b, ta, tb)),
+            "plain_ms": _time_ms(lambda: g.match_grid_plain(a, b, ta, tb), 1),
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "library_ms": None, "max_abs_err": _max_err(got, want),
+        }
+        shape["gcells_per_s"] = cells / shape["ms"] / 1e6
+        shapes.append(shape)
+        log(f"[timing] dotplot_match_grid {json.dumps(shape)}")
+    return {**{key: shapes[0][key] for key in
+               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "max_abs_err": max(s["max_abs_err"] for s in shapes),
+            "shapes": shapes}
+
+
+def timing_match_grid_mxu(a, b, k: int, tile: int):
+    """The +-1 product per launch, bf16 and int8. Its bound: the product's
+    4k operations per cell over the tensor cores' rate for the type, or the
+    epilogue's 2 instructions per cell (compare with 2k, predicated add) at
+    the CUDA cores' issue rate, whichever is larger, against the words read
+    once. The library
+    yardstick is the product alone, row-striped so that it fits: torch.matmul
+    of the bf16 +-1 matrices and torch._int_mm of the int8 ones."""
+    from autocycler_tpu_torch.ops import dotplot_grid as g
+
+    n_a, n_b = a.shape[1], b.shape[1]
+    cells = float(n_a) * float(n_b)
+    epilogue_ms = 2 * cells / INT_OPS * 1e3
+    shapes = []
+    for dtype, peak in (("bfloat16", BF16_FLOPS), ("int8", INT8_OPS)):
+        got = g.match_grid_mxu_cuda(a, b, k, tile, in_dtype=dtype)
+        want = g.match_grid_mxu_plain(a, b, k, tile, in_dtype=dtype)
+        product_ms = 4 * k * cells / peak * 1e3
+        a_pm = g.expand_pm1_words(a, k, dtype=dtype)
+        b_pm = g.expand_pm1_words(b, k, dtype=dtype)
+        stripe = 8192 if dtype == "bfloat16" else 4096
+
+        def library():
+            for r0 in range(0, n_a, stripe):
+                if dtype == "bfloat16":
+                    torch.matmul(a_pm[r0:r0 + stripe], b_pm.T)
+                else:
+                    torch._int_mm(a_pm[r0:r0 + stripe], b_pm.T)
+        library_ms = _time_ms(library)
+        bound = {"operations": max(product_ms, epilogue_ms),
+                 "bytes": _grid_bytes_ms(a, b, tile, tile)}
+        shape = {
+            "dtype": dtype, "n_a": n_a, "n_b": n_b, "k": k,
+            "tiles": f"{tile}x{tile}",
+            "ms": _time_ms(lambda: g.match_grid_mxu_cuda(
+                a, b, k, tile, in_dtype=dtype)),
+            "plain_ms": _time_ms(lambda: g.match_grid_mxu_plain(
+                a, b, k, tile, in_dtype=dtype), 1),
+            "bound_ms": max(bound.values()),
+            "bound_by": max(bound, key=bound.get),
+            "product_ms": product_ms, "epilogue_ms": epilogue_ms,
+            "library_ms": library_ms,
+            "library": "product only: torch.matmul (bf16) / torch._int_mm "
+                       f"(int8) in stripes of {stripe} rows",
+            "max_abs_err": _max_err(got, want),
+        }
+        shape["gcells_per_s"] = cells / shape["ms"] / 1e6
+        del a_pm, b_pm
+        shapes.append(shape)
+        log(f"[timing] dotplot_match_grid_mxu {json.dumps(shape)}")
+    return {**{key: shapes[0][key] for key in
+               ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "max_abs_err": max(s["max_abs_err"] for s in shapes),
+            "shapes": shapes}
+
+
+def phase_timing(paths, captured, plasmid_pair, grid_words):
+    a, b = grid_words
+    timed = {
+        "sortnet_pack_rank": (timing_sortnet(captured), "compress"),
+        "dotplot_match_grid": (timing_match_grid([
+            ("plasmid pair (dotplot --grid-mode device)", *plasmid_pair),
+            (f"{GRID_N}^2 k={GRID_K} (benchmark_gcells vpu)", a, b, 2048,
+             4096)]), "dotplot device"),
+        "dotplot_match_grid_mxu": (timing_match_grid_mxu(a, b, GRID_K, 1024),
+                                   "grid"),
+    }
     rows = []
     for name, meta in KERNEL_SOURCES.items():
-        rows.append({
-            "name": name, **meta, "launches": launches[name],
-            "max_abs_err": max(s["max_abs_err"] for s in shapes),
-            # per compress: the sum over the main path's launches
-            "ms": sum(s["ms"] for s in shapes),
-            "plain_ms": sum(s["plain_ms"] for s in shapes),
-            "bound_ms": sum(s["bound_ms"] for s in shapes),
-            "bound_by": "bytes",
-            "library_ms": sum(s["library_ms"] for s in shapes),
-            "shapes": shapes,
-        })
+        numbers, path = timed[name]
+        rows.append({"name": name, **meta,
+                     "launches": paths[path][name], "path": path, **numbers})
     return rows
 
 
@@ -304,8 +677,9 @@ def main() -> int:
     phase_build()
     phase_kernels()
     with tempfile.TemporaryDirectory() as td:
-        launches, captured = phase_main(Path(td))
-    rows = phase_timing(launches, captured)
+        paths, captured, plasmid_pair = phase_main(Path(td))
+    paths["grid"], grid_words = phase_grid()
+    rows = phase_timing(paths, captured, plasmid_pair, grid_words)
     if any(r["max_abs_err"] != 0 for r in rows):
         raise AssertionError("[timing] a kernel disagrees with its plain "
                              "version at the main path's shapes")

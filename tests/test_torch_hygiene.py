@@ -25,9 +25,15 @@ def test_port_runs_compress_without_jax(tmp_path):
         "import sys\n"
         "from autocycler_tpu_torch.commands.compress import compress\n"
         "from autocycler_tpu_torch.commands.decompress import decompress\n"
+        "from autocycler_tpu_torch.commands.cluster import cluster\n"
+        "from autocycler_tpu_torch.commands.dotplot import dotplot\n"
         f"compress({str(asm)!r}, {str(tmp_path / 'out')!r}, device='cpu')\n"
         f"decompress({str(tmp_path / 'out' / 'input_assemblies.gfa')!r}, "
         f"{str(tmp_path / 'recon')!r})\n"
+        f"cluster({str(tmp_path / 'out')!r}, device='cpu')\n"
+        f"dotplot({str(tmp_path / 'out' / 'input_assemblies.gfa')!r}, "
+        f"{str(tmp_path / 'plot.png')!r}, res=500, kmer=12, "
+        "grid_mode='device', device='cpu')\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'autocycler_tpu' or m.startswith('autocycler_tpu.')]\n"
         "print('LOADED', bad)\n")
@@ -40,6 +46,8 @@ def test_port_runs_compress_without_jax(tmp_path):
     assert "LOADED []" in res.stdout
     assert (tmp_path / "recon" / "assembly_1.fasta").read_bytes() == \
         (asm / "assembly_1.fasta").read_bytes()
+    assert (tmp_path / "out/clustering/clustering.tsv").is_file()
+    assert (tmp_path / "plot.png").is_file()
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
@@ -64,6 +72,27 @@ def test_cli_without_cuda_exits_1(tmp_path, monkeypatch, capsys):
     assert not (tmp_path / "out" / "input_assemblies.gfa").exists()
 
 
+def test_cluster_and_dotplot_without_cuda_exit_1(tmp_path, monkeypatch,
+                                                 capsys):
+    from synthetic import make_assemblies
+
+    from autocycler_tpu_torch import cli
+    from autocycler_tpu_torch.commands.compress import compress
+    asm = make_assemblies(tmp_path, n_assemblies=2, chromosome_len=3000,
+                          plasmid_len=500)
+    compress(asm, tmp_path / "out", device="cpu")
+    capsys.readouterr()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["cluster", "-a", str(tmp_path / "out")],
+                 ["dotplot", "-i", str(tmp_path / "out/input_assemblies.gfa"),
+                  "-o", str(tmp_path / "plot.png")]):
+        assert cli.main(argv) == 1
+        err = capsys.readouterr().err
+        assert "Error:" in err and "CUDA" in err
+    assert not (tmp_path / "out" / "clustering").exists()
+    assert not (tmp_path / "plot.png").exists()
+
+
 def test_cli_reports_user_errors(tmp_path, capsys):
     from autocycler_tpu_torch import cli
     rc = cli.main(["decompress", "-i", str(tmp_path / "missing.gfa"),
@@ -78,6 +107,28 @@ def test_kernel_wrapper_raises_on_cpu_tensor():
     starts = torch.arange(10, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         sortnet.pack_rank_cuda(codes, starts, 11)
+
+
+def test_match_grid_wrappers_raise_on_cpu_tensors():
+    from autocycler_tpu_torch.ops import dotplot_grid
+    words = torch.zeros((2, 300), dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        dotplot_grid.match_grid_cuda(words, words, 128, 128)
+    for dtype in ("bfloat16", "int8"):
+        with pytest.raises(ValueError, match="CUDA"):
+            dotplot_grid.match_grid_mxu_cuda(words, words, 32, 128,
+                                             in_dtype=dtype)
+
+
+def test_kmer_index_has_no_cpu_default():
+    """The index's later device stages run where build_kmer_index put them; a
+    KmerIndex made without a device is an error, not a silent CPU run."""
+    import dataclasses
+
+    from autocycler_tpu_torch.ops.kmers import KmerIndex
+    field = {f.name: f for f in dataclasses.fields(KmerIndex)}["device"]
+    assert field.default is dataclasses.MISSING
+    assert field.default_factory is dataclasses.MISSING
 
 
 def test_device_resolution(monkeypatch):
@@ -98,4 +149,6 @@ def test_build_paths_are_git_ignored():
     assert _build.BUILD_DIR.parent == PORT
     ignored = (REPO / ".gitignore").read_text().splitlines()
     assert "autocycler_tpu_torch/_build/" in ignored
-    assert (_build.CSRC_DIR / "sortnet.cu").is_file()
+    for name in _build.SOURCES:
+        assert (_build.CSRC_DIR / f"{name}.cu").is_file()
+    assert set(_build.SOURCES) == {"sortnet", "match_grid"}
