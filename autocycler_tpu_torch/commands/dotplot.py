@@ -8,8 +8,8 @@ text, lightgrey self-vs-self panels, mediumblue forward / firebrick reverse
 dots, drawn in reverse-then-forward order so forward wins overlaps.
 
 The k-mer matching runs on the device. The default sort-join groups all
-windows of A (forward and reverse complement) and B with the sort-network
-kernel (ops.kmers) and joins on group id with torch ops. ``--grid-mode
+windows of A (forward and reverse complement) and B with the k-mer grouping
+kernels (ops.kmers) and joins on group id with torch ops. ``--grid-mode
 device`` counts matches per tile with the word-compare kernel
 (ops.dotplot_grid.match_grid) and refines only the nonzero tiles into exact
 cells. Both give the JAX package's match arrays, element for element and in
@@ -219,7 +219,7 @@ def kmer_match_positions(seq_a: np.ndarray, seq_b: np.ndarray, kmer: int,
     """All (i, j) k-mer matches of A-forward vs B and A-reverse vs B, with
     A-reverse positions mapped like the reference (n_a - i - 1,
     dotplot.rs:433-450). Returns (fwd_i, fwd_j, rev_i, rev_j) on the device.
-    Every window is grouped by the sort-network kernel; the join is a
+    Every window is grouped by the k-mer grouping kernels; the join is a
     stable sort of A's group ids and a searchsorted of B's, so B positions
     ascend and, within one, A's windows keep their order."""
     dev = resolve_device(device)

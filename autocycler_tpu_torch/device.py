@@ -4,13 +4,15 @@ Entry points run on CUDA unless the caller asks for the CPU (the tests do).
 There is no fallback: a request for CUDA on a machine without a card is an
 error, never a silent CPU run.
 
-Every hand-written kernel's wrapper launches it through :func:`launch`,
-which counts the launch and puts CUDA events around it, so a run can show
+Every hand-written kernel's wrapper launches it through :func:`launch` (or
+:func:`kernel_launch`, for a kernel of several passes), which counts the
+launch and puts CUDA events around it, so a run can show
 that its main path went through the kernels and how long they took.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, List, Tuple
 
 import torch
@@ -37,21 +39,34 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def launch(name: str, device: torch.device, fn, *args) -> None:
-    """One launch of kernel ``name`` through its C entry point ``fn(*args,
-    stream)`` on the current stream of ``device``, timed by CUDA events and
-    counted. Raises on a launch the runtime refused (``fn`` returns its
-    CUDA error)."""
+@contextlib.contextmanager
+def kernel_launch(name: str, device: torch.device):
+    """One launch of kernel ``name``: counts it, and times with CUDA events
+    everything enqueued on the current stream of ``device`` inside the
+    block (a kernel made of several passes and their bookkeeping is one
+    launch). Yields the stream's handle for the C entry points."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record(stream)
-        err = fn(*args, stream.cuda_stream)
+        yield stream.cuda_stream
         end.record(stream)
+    record_launch(name, start, end)
+
+
+def check(name: str, err: int) -> None:
+    """Raises on a CUDA error returned by a C entry point."""
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    record_launch(name, start, end)
+
+
+def launch(name: str, device: torch.device, fn, *args) -> None:
+    """One launch of kernel ``name`` through its C entry point ``fn(*args,
+    stream)``, timed and counted by :func:`kernel_launch`. Raises on a
+    launch the runtime refused (``fn`` returns its CUDA error)."""
+    with kernel_launch(name, device) as stream:
+        check(name, fn(*args, stream))
 
 
 def record_launch(name: str, start: torch.cuda.Event,

@@ -1,3 +1,3 @@
-"""Device ops of the port: encoding, the sort-network grouping kernel, the
+"""Device ops of the port: encoding, the k-mer grouping (partition-sort) kernels, the
 k-mer index, chain following, end repair, graph assembly, the cluster
 distance contraction and the dotplot match grids."""

@@ -11,7 +11,7 @@ non-overlapping matches left-to-right, which we reproduce exactly.
 A pattern of h dots + h real bases matches text at offset j iff
 text[j+off : j+off+h] equals the h real bases — every match is an occurrence
 of a query h-gram. The occurrences come from grouping ALL h-grams of the
-5-symbol-encoded texts on the device with the sort-network kernel
+5-symbol-encoded texts on the device with the k-mer grouping kernels
 (ops/sortnet.py); only each query's matches come back to the host.
 """
 

@@ -1,7 +1,7 @@
 """Exact k-mer grouping and the k-mer index, on the device.
 
 The port of the JAX package's ops/kmers.py, in-memory path. Every k-window of
-every padded sequence (both strands) is grouped by the sort-network kernel
+every padded sequence (both strands) is grouped by the partition-sort kernels
 (ops/sortnet.py, csrc/sortnet.cu): group ids are the windows' lexicographic
 ranks, so the reference's sorted k-mer iteration (kmer_graph.rs:168-173)
 falls out for free. Per-group depth and first occurrence are a segment count

@@ -25,6 +25,10 @@ Phases (any failure exits non-zero, and the result lines are not printed):
 5. timing  — each kernel at the shapes its path gave it: the kernel, its
              plain version and a PyTorch library yardstick where one call
              computes the function, beside the least time the card allows.
+             The k-mer grouping is timed at compress's three shapes and at
+             the first plasmid- and chromosome-dotplot pair's, with its
+             first partition's statistics, its time per pass and, at k=51,
+             its peak device memory.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. Imports neither jax nor the JAX package.
@@ -88,7 +92,8 @@ def phase_build() -> None:
         f"{time.perf_counter() - t0:.3f} s")
     for name in _build.SOURCES:
         for line in _build.log_path(name).read_text().splitlines():
-            if "registers" in line or "error" in line.lower():
+            if ("registers" in line or "error" in line.lower()
+                    or ("spill" in line and " 0 bytes spill stores" not in line)):
                 log(f"[build] {name}: {line.strip()}")
 
 
@@ -97,21 +102,59 @@ def phase_kernels() -> None:
     kernels_match_grid()
 
 
+def _oversized_buckets(rng, plan, k: int):
+    """Windows of one first-partition bucket of small + 1 records and one
+    of cap + 1 (a sort block's capacity), among random DNA windows: the two
+    buckets' prefixes start with a dot, which no random window holds."""
+    pieces, starts, pos = [], [], 0
+    for size, last in ((plan.small + 1, 0), (plan.cap + 1, 1)):
+        head = np.zeros(plan.prefix, np.uint8)
+        head[-1] = last
+        tails = rng.integers(1, 5, size=(size, k - plan.prefix)).astype(np.uint8)
+        pieces.append(np.concatenate([np.broadcast_to(head, (size, plan.prefix)),
+                                      tails], 1).ravel())
+        starts.append(pos + k * np.arange(size))
+        pos += k * size
+    tail = rng.integers(1, 5, size=plan.n - pos // k + k - 1).astype(np.uint8)
+    starts.append(pos + np.arange(len(tail) - k + 1))
+    return np.concatenate(pieces + [tail]), np.concatenate(starts)
+
+
 def kernels_sortnet() -> None:
-    """pack_rank against pack_rank_plain, on the card, exact."""
+    """pack_rank against pack_rank_plain, on the card, exact: random windows
+    at every k of the main path (25, 32, 50, 51), the word edges (1, 12, 13,
+    14), k > 65, n from 1 to 2**24 and not powers of two; all-equal windows
+    (one bucket of 2**22 + 3 records), buckets just over half and just over
+    a sort block, dotted ends and a poly-A stretch."""
     from autocycler_tpu_torch.ops import sortnet
     dev = torch.device("cuda")
     rng = np.random.default_rng(11)
     cases = []
     for k in (51, 50, 25, 11):
-        block = 1 << sortnet.network_shape(1 << 20, k)[2]
+        block = sortnet.make_plan(1 << 20, k).cap
         for n in (1, 1000, block, block + 1, 3 * 2**20 + 7, 2**24):
             codes = rng.integers(0, 5, size=max(n // 3, 64) + k).astype(np.uint8)
             starts = rng.integers(0, len(codes) - k + 1, size=n)
             cases.append((f"random k={k} n={n}", codes, starts, k))
+    for k in (32, 14, 13, 12, 1, 80):
+        for n in (1000, 3 * 2**20 + 7):
+            codes = rng.integers(0, 5, size=max(n // 3, 64) + k).astype(np.uint8)
+            starts = rng.integers(0, len(codes) - k + 1, size=n)
+            cases.append((f"random k={k} n={n}", codes, starts, k))
+    genome = rng.integers(1, 5, size=6_000_000).astype(np.uint8)
+    for k in (32, 51):                       # every window of a random genome
+        cases.append((f"genome k={k}", genome, np.arange(len(genome) - k + 1), k))
     one_base = np.full(4096, 3, np.uint8)            # every window equal
     cases.append(("all-equal k=51", one_base,
                   rng.integers(0, 4096 - 51, size=100_000), 51))
+    n_equal = 2**22 + 3
+    cases.append((f"all-equal k=51 n={n_equal}", one_base,
+                  rng.integers(0, 4096 - 51, size=n_equal), 51))
+    for k in (51, 25):
+        plan = sortnet.make_plan(1 << 20, k)
+        codes, starts = _oversized_buckets(rng, plan, k)
+        cases.append((f"buckets of {plan.small + 1} and {plan.cap + 1} k={k}",
+                      codes, starts, k))
     dotted = rng.integers(1, 5, size=1 << 20).astype(np.uint8)
     dotted[rng.integers(0, len(dotted), size=1 << 14)] = 0   # '.' padding
     dotted[:25] = 0
@@ -119,6 +162,10 @@ def kernels_sortnet() -> None:
     for k in (51, 25):
         cases.append((f"dots k={k}", dotted,
                       np.arange(len(dotted) - k + 1), k))
+    poly_a = rng.integers(1, 5, size=3 << 20).astype(np.uint8)
+    poly_a[1 << 20:2 << 20] = 1
+    for k in (51, 32):
+        cases.append((f"poly-A k={k}", poly_a, np.arange(len(poly_a) - k + 1), k))
     for label, codes, starts, k in cases:
         c = torch.from_numpy(codes).to(dev)
         s = torch.from_numpy(starts.astype(np.int32)).to(dev)
@@ -129,6 +176,9 @@ def kernels_sortnet() -> None:
             if not torch.equal(a, b):
                 raise AssertionError(f"[kernels] {label}: {name} differs "
                                      "from the plain version")
+        if label.startswith(("all-equal k=51 n", "buckets", "poly-A")):
+            log(f"[kernels] {label}: exact; first partition "
+                f"{json.dumps(sortnet.partition_stats(c, s, k))}")
     log(f"[kernels] sortnet_pack_rank equals its plain version in "
         f"{len(cases)} cases (exact)")
 
@@ -307,8 +357,9 @@ def phase_main(work: Path):
         f"{(out / 'input_assemblies.yaml').read_text().count('- name:')} "
         "contigs in input_assemblies.yaml")
     profile_compress(asm, work / "out_profiled", out)
-    paths, plasmid_pair = cluster_and_dotplot(work, out)
-    return {"compress": launches, **paths}, captured, plasmid_pair
+    paths, plasmid_pair, dotplot_groupings = cluster_and_dotplot(work, out)
+    return ({"compress": launches, **paths}, captured, plasmid_pair,
+            dotplot_groupings)
 
 
 def run_cli(label: str, argv):
@@ -344,6 +395,27 @@ def _cluster_median(cluster_dir: Path) -> int:
     raise AssertionError(f"[main] no median in {cluster_dir}")
 
 
+@contextlib.contextmanager
+def first_grouping_inputs():
+    """Keeps the (codes, starts, k) of the first grouping launched inside the
+    block, for the timing phase."""
+    from autocycler_tpu_torch.ops import sortnet
+
+    seen = []
+    real = sortnet.pack_rank_cuda
+
+    def capture(codes, starts, k):
+        if not seen:
+            seen.append((codes, starts, k))
+        return real(codes, starts, k)
+
+    sortnet.pack_rank_cuda = capture
+    try:
+        yield seen
+    finally:
+        sortnet.pack_rank_cuda = real
+
+
 def cluster_and_dotplot(work: Path, out: Path):
     """cluster, then the dotplots: the plasmid cluster in auto and device
     grid mode (identical PNGs), and the chromosome cluster in auto mode."""
@@ -359,9 +431,10 @@ def cluster_and_dotplot(work: Path, out: Path):
     chromosome = max(qc_pass, key=_cluster_median) / "1_untrimmed.gfa"
 
     pngs = {mode: work / f"plasmid_{mode}.png" for mode in ("auto", "device")}
-    paths["dotplot auto"] = run_cli(
-        "plasmid cluster dotplot, auto",
-        ["dotplot", "-i", plasmid, "-o", pngs["auto"]])
+    with first_grouping_inputs() as plasmid_grouping:
+        paths["dotplot auto"] = run_cli(
+            "plasmid cluster dotplot, auto",
+            ["dotplot", "-i", plasmid, "-o", pngs["auto"]])
     pairs = []
     real = dotplot_grid.match_grid_cuda
 
@@ -393,13 +466,15 @@ def cluster_and_dotplot(work: Path, out: Path):
 
     # every pair is a 6 Mbp x 6 Mbp sort-join; the device grid would be
     # 3.6e13 cells a pair, past MAX_DEVICE_CELLS, so auto mode only
-    paths["dotplot chromosomes"] = run_cli(
-        "chromosome cluster dotplot, auto",
-        ["dotplot", "-i", chromosome, "-o", work / "chromosomes.png"])
+    with first_grouping_inputs() as chromosome_grouping:
+        paths["dotplot chromosomes"] = run_cli(
+            "chromosome cluster dotplot, auto",
+            ["dotplot", "-i", chromosome, "-o", work / "chromosomes.png"])
     if paths["dotplot chromosomes"]["sortnet_pack_rank"] == 0:
         raise AssertionError("[main] the chromosome dotplot launched no "
                              "kernel")
-    return paths, pairs[0]
+    return paths, pairs[0], {"plasmid-dotplot pair": plasmid_grouping[0],
+                             "chromosome-dotplot pair": chromosome_grouping[0]}
 
 
 def profile_cli(label: str, argv) -> None:
@@ -499,52 +574,120 @@ def _max_err(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0
 
 
-def timing_sortnet(captured):
+class _PassTimer:
+    """The grouping kernels' C entry points with CUDA events around each
+    pass, for a per-pass breakdown (ms summed by pass name)."""
+
+    def __init__(self, kern):
+        self.kern = kern
+        self.ms = {}
+        self.events = []
+
+    def __getattr__(self, name):
+        fn = getattr(self.kern, name)
+
+        def timed(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(*args)
+            end.record()
+            self.events.append((name, start, end))
+        return timed
+
+    def summary(self) -> dict:
+        torch.cuda.synchronize()
+        for name, start, end in self.events:
+            self.ms[name] = self.ms.get(name, 0.0) + start.elapsed_time(end)
+        return self.ms
+
+
+def sortnet_passes(codes, starts, k: int) -> dict:
+    """One grouping through the kernels with each pass timed; the rest of
+    the CUDA-event total is the torch bookkeeping and host syncs. Not a
+    counted launch (it calls partition_rank, not the wrapper)."""
     from autocycler_tpu_torch.ops import sortnet
 
-    shapes = []
-    for codes, starts, k in captured:
-        n = len(starts)
-        got = sortnet.pack_rank_cuda(codes, starts, k)
-        want = sortnet.pack_rank_plain(codes, starts, k)
-        err = max(_max_err(a, b) for a, b in zip(got, want))
-        del got, want
-        words = sortnet.pack_words_plain(codes, starts, k)
-        if len(words) == 2:
-            # one stable sort of the single int64 key w0 * 5**13 + w1
-            key = words[0].long() * 5**13 + words[1].long()
-            lib_label = "torch.sort(int64 key, stable=True), 1 call"
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        timer = _PassTimer(sortnet.CudaKernels(stream))
+        start.record()
+        sortnet.partition_rank(codes, starts, k, timer)
+        end.record()
+    passes = timer.summary()
+    total = start.elapsed_time(end)
+    return {"total_ms": total, **{f"{n}_ms": v for n, v in passes.items()},
+            "bookkeeping_ms": total - sum(passes.values())}
 
-            def library():
-                torch.sort(key, stable=True)
-        else:
-            lib_label = f"torch.sort LSD, {len(words)} stable calls + gathers"
 
-            def library():
-                order = torch.arange(n, device=codes.device)
-                for w in reversed(words):
-                    _, perm = torch.sort(w[order], stable=True)
-                    order = order[perm]
-        shape = {
-            "k": k, "n": n, "codes": len(codes),
-            "ms": _time_ms(lambda: sortnet.pack_rank_cuda(codes, starts, k)),
-            "plain_ms": _time_ms(lambda: sortnet.pack_rank_plain(codes, starts, k)),
-            "library_ms": _time_ms(library), "library": lib_label,
-            # each input read once (codes, starts), each output written once
-            # (order, gid_sorted), over the memory rate
-            "bound_ms": (len(codes) + 4 * n + 8 * n) / HBM_BYTES_PER_S * 1e3,
-            "max_abs_err": err,
-        }
-        del words
-        shapes.append(shape)
-        log(f"[timing] sortnet_pack_rank {json.dumps(shape)}")
-    # per compress: the sums over the main path's launches
+def _time_sortnet_shape(label: str, codes, starts, k: int) -> dict:
+    """The grouping at one shape of its path: the kernels, the plain version,
+    the torch.sort LSD yardstick (one stable sort and gather per word, least
+    significant first, from pre-packed words; one int64 sort at two words)
+    and the bytes bound, with the first partition's statistics."""
+    from autocycler_tpu_torch.ops import sortnet
+
+    n = len(starts)
+    got = sortnet.pack_rank_cuda(codes, starts, k)
+    want = sortnet.pack_rank_plain(codes, starts, k)
+    err = max(_max_err(a, b) for a, b in zip(got, want))
+    del got, want
+    words = sortnet.pack_words_plain(codes, starts, k)
+    if len(words) == 2:
+        key = words[0].long() * 5**13 + words[1].long()
+        lib_label = "torch.sort(int64 key, stable=True), 1 call"
+
+        def library():
+            torch.sort(key, stable=True)
+    else:
+        lib_label = f"torch.sort LSD, {len(words)} stable calls + gathers"
+
+        def library():
+            order = torch.arange(n, device=codes.device)
+            for w in reversed(words):
+                _, perm = torch.sort(w[order], stable=True)
+                order = order[perm]
+    shape = {
+        "shape": label, "k": k, "n": n, "codes": len(codes),
+        "ms": _time_ms(lambda: sortnet.pack_rank_cuda(codes, starts, k)),
+        "plain_ms": _time_ms(lambda: sortnet.pack_rank_plain(codes, starts, k)),
+        "library_ms": _time_ms(library), "library": lib_label,
+        # each input read once (codes, starts), each output written once
+        # (order, gid_sorted), over the memory rate
+        "bound_ms": (len(codes) + 4 * n + 8 * n) / HBM_BYTES_PER_S * 1e3,
+        "max_abs_err": err,
+        "partition": sortnet.partition_stats(codes, starts, k),
+        "passes": sortnet_passes(codes, starts, k),
+    }
+    del words
+    if k == 51:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sortnet.pack_rank_cuda(codes, starts, k)
+        torch.cuda.synchronize()
+        shape["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        shape["memory_allocated_before"] = before
+    log(f"[timing] sortnet_pack_rank {json.dumps(shape)}")
+    return shape
+
+
+def timing_sortnet(captured, dotplot_groupings):
+    """Per compress (the sums over its launches), and per launch at the
+    plasmid and chromosome dotplots' first pair."""
+    shapes = [_time_sortnet_shape(f"compress k={k}", codes, starts, k)
+              for codes, starts, k in captured]
+    pairs = [_time_sortnet_shape(label, *inputs)
+             for label, inputs in dotplot_groupings.items()]
     return {"ms": sum(s["ms"] for s in shapes),
             "plain_ms": sum(s["plain_ms"] for s in shapes),
             "bound_ms": sum(s["bound_ms"] for s in shapes), "bound_by": "bytes",
             "library_ms": sum(s["library_ms"] for s in shapes),
-            "max_abs_err": max(s["max_abs_err"] for s in shapes),
-            "shapes": shapes}
+            "max_abs_err": max(s["max_abs_err"] for s in shapes + pairs),
+            "shapes": shapes + pairs}
 
 
 def _grid_bytes_ms(a, b, ta, tb) -> float:
@@ -644,10 +787,12 @@ def timing_match_grid_mxu(a, b, k: int, tile: int):
             "shapes": shapes}
 
 
-def phase_timing(paths, captured, plasmid_pair, grid_words):
+def phase_timing(paths, captured, plasmid_pair, dotplot_groupings,
+                 grid_words):
     a, b = grid_words
     timed = {
-        "sortnet_pack_rank": (timing_sortnet(captured), "compress"),
+        "sortnet_pack_rank": (timing_sortnet(captured, dotplot_groupings),
+                              "compress"),
         "dotplot_match_grid": (timing_match_grid([
             ("plasmid pair (dotplot --grid-mode device)", *plasmid_pair),
             (f"{GRID_N}^2 k={GRID_K} (benchmark_gcells vpu)", a, b, 2048,
@@ -677,9 +822,10 @@ def main() -> int:
     phase_build()
     phase_kernels()
     with tempfile.TemporaryDirectory() as td:
-        paths, captured, plasmid_pair = phase_main(Path(td))
+        paths, captured, plasmid_pair, dotplot_groupings = phase_main(Path(td))
     paths["grid"], grid_words = phase_grid()
-    rows = phase_timing(paths, captured, plasmid_pair, grid_words)
+    rows = phase_timing(paths, captured, plasmid_pair, dotplot_groupings,
+                        grid_words)
     if any(r["max_abs_err"] != 0 for r in rows):
         raise AssertionError("[timing] a kernel disagrees with its plain "
                              "version at the main path's shapes")
