@@ -18,7 +18,8 @@ tensors and a plain PyTorch version for CPU tensors:
 - :func:`match_grid_mxu` (JAX ``match_grid_mxu``, Pallas ``_mxu_kernel``):
   each k-mer becomes a row of 2k values of +-1 (:func:`expand_pm1_words`)
   and a cell matches when its dot product equals 2k, a product on the
-  tensor cores in bf16 (f32 sums) or int8 (int32 sums).
+  tensor cores in bf16 (f32 sums) or int8 (int32 sums): a wgmma kernel fed
+  by bulk copies for k <= 64, the generic wmma kernel above.
 
 2-bit words have no out-of-band value (a poly-T word is -1), so tile edges
 are masked by global index: the kernels and plain versions never see a pad.
@@ -47,7 +48,12 @@ KERNEL_WORDS = "dotplot_match_grid"
 KERNEL_PM1 = "dotplot_match_grid_mxu"
 MAX_WORDS = 16              # the word kernel's largest k-mer: k <= 256
 MXU_BLOCK = 128             # the product kernel's cell block; tiles are multiples
-FRAGMENT_DEPTH = 16         # tensor-core fragment depth the product is padded to
+FRAGMENT_DEPTH = 16         # the generic (wmma) kernel's fragment depth
+WGMMA_MAX_K = 64            # k up to which the wgmma kernel runs (depth <= 128)
+WGMMA_DEPTH_BYTES = 32      # wgmma's depth step: 16 bf16 or 32 int8 values
+WGMMA_BAND = 256            # A rows resident in a block of the wgmma kernel
+WGMMA_STAGE = 128           # B rows of one stage of its ring (wgmma N)
+CORE_ROWS = 8               # a core matrix: 8 rows x 16 bytes
 IN_DTYPES = {"bfloat16": torch.bfloat16, "int8": torch.int8}
 # cells of one plain-version chunk, and bool cells of one refinement chunk
 _PLAIN_CELLS = 1 << 28
@@ -156,6 +162,16 @@ def _lib():
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
         lib.match_grid_pm1.restype = ctypes.c_int
+        ll = ctypes.c_longlong
+        lib.match_grid_pm1_wgmma.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ll, ll, ll, ll,
+            ctypes.c_void_p, ctypes.c_void_p]
+        lib.match_grid_pm1_wgmma.restype = ctypes.c_int
+        lib.match_grid_pm1_wgmma_shape.argtypes = [
+            ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_int)]
+        lib.match_grid_pm1_wgmma_shape.restype = ctypes.c_int
     return lib
 
 
@@ -254,14 +270,53 @@ def match_grid_mxu_plain(a_words: torch.Tensor, b_words: torch.Tensor, k: int,
     return out
 
 
+def pm1_depth(k: int, dtype) -> int:
+    """Columns the +-1 rows are zero-padded to: whole 32-byte wgmma depth
+    steps (16 bf16 or 32 int8 values) for the wgmma kernel (k <= 64), whole
+    16-deep fragments for the generic kernel. Zero columns add 0 to every
+    dot."""
+    step = (WGMMA_DEPTH_BYTES // _in_dtype(dtype).itemsize
+            if k <= WGMMA_MAX_K else FRAGMENT_DEPTH)
+    return -(-2 * k // step) * step
+
+
+def pm1_core_layout(pm: torch.Tensor, rows: int) -> torch.Tensor:
+    """[n, depth] +-1 rows -> the wgmma kernel's core-matrix layout: zero
+    rows pad n to a multiple of ``rows`` (at least one), and each group of 8
+    rows is stored as [depth bytes / 16][8 rows][16 bytes], so any run of
+    whole groups is one contiguous copy. Returns [n_pad / 8, depth bytes /
+    16, 8, 16 bytes] in pm's dtype."""
+    n, depth = pm.shape
+    per = 16 // pm.element_size()
+    if depth % per:
+        raise ValueError(f"depth {depth} is not a whole number of 16-byte "
+                         "core-matrix columns")
+    n_pad = max(1, -(-n // rows)) * rows
+    padded = F.pad(pm, (0, 0, 0, n_pad - n))
+    return padded.view(n_pad // CORE_ROWS, CORE_ROWS, depth // per,
+                       per).permute(0, 2, 1, 3).contiguous()
+
+
+def pm1_wgmma_shape(row_bytes: int) -> Tuple[int, int]:
+    """(ring stages, dynamic shared memory bytes) of a wgmma-kernel block at
+    ``row_bytes`` on the current CUDA device."""
+    stages, smem = ctypes.c_int(), ctypes.c_int()
+    _device.check(KERNEL_PM1, _lib().match_grid_pm1_wgmma_shape(
+        row_bytes, ctypes.byref(stages), ctypes.byref(smem)))
+    return stages.value, smem.value
+
+
 def match_grid_mxu_cuda(a_words: torch.Tensor, b_words: torch.Tensor, k: int,
                         tile: int = TILE_MXU, tile_a: int = None,
                         tile_b: int = None, in_dtype="bfloat16"
                         ) -> torch.Tensor:
-    """Expand both sides to +-1 rows on the card, zero-padded to the
-    fragment depth, and launch the tensor-core kernel of
-    csrc/match_grid.cu. Raises on a tensor that is not on a CUDA device and
-    on tiles that are not multiples of 128."""
+    """Expand both sides to +-1 rows on the card, zero-padded to
+    :func:`pm1_depth`, and launch a tensor-core kernel of
+    csrc/match_grid.cu: for k <= 64 the wgmma kernel on operands in
+    core-matrix layout (:func:`pm1_core_layout`, A padded to whole bands, B
+    to whole stages), above that the generic wmma kernel on row-major
+    operands. Raises on a tensor that is not on a CUDA device and on tiles
+    that are not multiples of 128."""
     tile_a, tile_b = _check_mxu(a_words, b_words, k, tile, tile_a, tile_b)
     if not a_words.is_cuda:
         raise ValueError("match_grid_mxu_cuda needs CUDA tensors")
@@ -271,17 +326,26 @@ def match_grid_mxu_cuda(a_words: torch.Tensor, b_words: torch.Tensor, k: int,
     dtype = _in_dtype(in_dtype)
     n_a, n_b = a_words.shape[1], b_words.shape[1]
     ga, gb = _grid(n_a, n_b, tile_a, tile_b)
-    depth = -(-2 * k // FRAGMENT_DEPTH) * FRAGMENT_DEPTH
+    depth = pm1_depth(k, dtype)
     out = _zero_grid(ga, gb, a_words.device)
-    if ga and gb:
-        a_pm = F.pad(expand_pm1_words(a_words, k, dtype=dtype),
-                     (0, depth - 2 * k)).contiguous()
-        b_pm = F.pad(expand_pm1_words(b_words, k, dtype=dtype),
-                     (0, depth - 2 * k)).contiguous()
+    if not (ga and gb):
+        return out
+    a_pm = F.pad(expand_pm1_words(a_words, k, dtype=dtype), (0, depth - 2 * k))
+    b_pm = F.pad(expand_pm1_words(b_words, k, dtype=dtype), (0, depth - 2 * k))
+    is_int8 = int(dtype == torch.int8)
+    if k <= WGMMA_MAX_K:
+        a_core = pm1_core_layout(a_pm, WGMMA_BAND)
+        b_core = pm1_core_layout(b_pm, WGMMA_STAGE)
+        _device.launch(KERNEL_PM1, a_words.device,
+                       _lib().match_grid_pm1_wgmma, a_core.data_ptr(),
+                       b_core.data_ptr(), depth * dtype.itemsize, 2 * k,
+                       is_int8, tile_a, tile_b, -(-n_a // WGMMA_BAND),
+                       -(-n_b // WGMMA_STAGE), ga, gb, out.data_ptr())
+    else:
+        a_pm, b_pm = a_pm.contiguous(), b_pm.contiguous()
         _device.launch(KERNEL_PM1, a_words.device, _lib().match_grid_pm1,
                        a_pm.data_ptr(), n_a, b_pm.data_ptr(), n_b, depth,
-                       2 * k, int(dtype == torch.int8), tile_a, tile_b,
-                       out.data_ptr())
+                       2 * k, is_int8, tile_a, tile_b, out.data_ptr())
     return out
 
 

@@ -7,7 +7,9 @@ Phases (any failure exits non-zero, and the result lines are not printed):
 1. build   — compile every kernel under autocycler_tpu_torch/csrc with nvcc,
              one nvcc per source, all at once.
 2. kernels — hold each kernel against its plain PyTorch version on the card
-             (exact equality: the outputs are integers).
+             (exact equality: the outputs are integers), the +-1 product
+             also at the edges of its wgmma design (bands, stages, depth
+             padding, work units, the generic path at k = 65).
 3. main    — the headline configuration (24 assemblies of a 6 Mbp chromosome
              + 120 kb plasmid, seed 7) through the port's CLI: compress at
              k=51, then decompress, which must restore the input FASTAs byte
@@ -25,8 +27,10 @@ Phases (any failure exits non-zero, and the result lines are not printed):
 5. timing  — each kernel at the shapes its path gave it: the kernel, its
              plain version and a PyTorch library yardstick where one call
              computes the function, beside the least time the card allows.
-             The k-mer grouping is timed at compress's three shapes and at
-             the first plasmid- and chromosome-dotplot pair's, with its
+             The +-1 product also gives its launch alone (kernel_ms, the
+             wrapper's CUDA events) and its registers, spills and shared
+             memory. The k-mer grouping is timed at compress's three shapes
+             and at the first plasmid- and chromosome-dotplot pair's, with its
              first partition's statistics, its time per pass and, at k=51,
              its peak device memory.
 
@@ -100,6 +104,7 @@ def phase_build() -> None:
 def phase_kernels() -> None:
     kernels_sortnet()
     kernels_match_grid()
+    kernels_pm1_edges()
 
 
 def _oversized_buckets(rng, plan, k: int):
@@ -251,6 +256,52 @@ def kernels_match_grid() -> None:
     log(f"[kernels] dotplot_match_grid and dotplot_match_grid_mxu (bf16, "
         f"int8) equal their plain versions in {len(cases)} cases (exact; "
         f"{nonzero} with matches)")
+
+
+def kernels_pm1_edges() -> None:
+    """The +-1 product at the edges of the wgmma kernel's design, both
+    dtypes, exact against match_grid_mxu_plain: n across the 256-row band
+    and the 128-row stage, tiles of 128 that split a band, at least 3
+    bands, the depths where int8 pads most (k = 1, 8, 16, 17), the last
+    wgmma depth and the first generic one (k = 64, 65), a B of three
+    256-stage work-unit chunks whose boundaries fall inside a 384-column
+    output tile, poly-T words and one empty side."""
+    from autocycler_tpu_torch.ops import dotplot_grid as g
+    rng = np.random.default_rng(13)
+    cases = []
+    for n_a, n_b in ((255, 257), (256, 256), (257, 255), (100_003, 100_003)):
+        cases.append((f"k=32 n={n_a}x{n_b} tiles 1024x1024", 32, 1024, 1024,
+                      *_shared_words(rng, n_a, n_b, 32)))
+    for ta, tb in ((128, 128), (128, 256)):
+        for k in (1, 8, 16, 17, 64, 65):
+            cases.append((f"k={k} n=775x1031 tiles {ta}x{tb}", k, ta, tb,
+                          *_shared_words(rng, 3 * 256 + 7, 1031, k)))
+    chunk_rows = 256 * 128                   # the kernel's CHUNK_STAGES x STAGE
+    a, b = _shared_words(rng, 775, 2 * chunk_rows + 7, 16)
+    for edge in (chunk_rows, 2 * chunk_rows):  # matches across each boundary
+        hi = min(edge + 300, b.shape[1])
+        b[:, edge - 300:hi] = a[:, :hi - edge + 300]
+    cases.append(("k=16 n=775x65543 tiles 128x384", 16, 128, 384, a, b))
+    poly_t = torch.full((1, 3 * 256 + 7), -1, dtype=torch.int32).cuda()
+    cases.append(("poly-T k=16 n=775 tiles 128x256", 16, 128, 256,
+                  poly_t, poly_t))
+    a, b = _shared_words(rng, 777, 0, 20)
+    cases.append(("k=20 n=777x0 tiles 128x128", 20, 128, 128, a, b))
+    cases.append(("k=20 n=0x777 tiles 128x128", 20, 128, 128, b, a))
+    for label, k, ta, tb, a, b in cases:
+        for dtype in g.IN_DTYPES:
+            want = g.match_grid_mxu_plain(a, b, k, tile_a=ta, tile_b=tb,
+                                          in_dtype=dtype)
+            got = g.match_grid_mxu_cuda(a, b, k, tile_a=ta, tile_b=tb,
+                                        in_dtype=dtype)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"[kernels] {label} {dtype}: the product kernel differs "
+                    f"from its plain version "
+                    f"({int((got - want).abs().max())} at most)")
+    log(f"[kernels] dotplot_match_grid_mxu equals its plain version at the "
+        f"wgmma design's edges in {len(cases)} cases x 2 dtypes (exact)")
 
 
 def _same_files(a: Path, b: Path) -> bool:
@@ -570,6 +621,35 @@ def _time_ms(fn, reps: int = 3) -> float:
     return float(np.median(times))
 
 
+def _launch_ms(name: str, fn, reps: int = 3) -> float:
+    """The median CUDA-event time of kernel `name`'s launch alone (the
+    wrapper's events, device.kernel_ms) over `reps` calls of fn after a
+    warm-up; resets the launch counts."""
+    from autocycler_tpu_torch import device
+    fn()
+    times = []
+    for _ in range(reps):
+        device.reset_counts()
+        fn()
+        times.append(device.kernel_ms(name))
+    device.reset_counts()
+    return float(np.median(times))
+
+
+def _ptxas_usage(kernel: str) -> dict:
+    """ptxas's resource lines (registers, shared memory, spills) for each
+    instantiation of `kernel`, from the nvcc log of csrc/match_grid.cu."""
+    from autocycler_tpu_torch.ops import _build
+    usage, current = {}, None
+    for line in _build.log_path("match_grid").read_text().splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            current = name if kernel in name else None
+        elif current and ("Used" in line or "spill" in line):
+            usage.setdefault(current, []).append(line.split(":", 1)[-1].strip())
+    return usage
+
+
 def _max_err(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((got.long() - want.long()).abs().max()) if got.numel() else 0
 
@@ -778,6 +858,15 @@ def timing_match_grid_mxu(a, b, k: int, tile: int):
             "max_abs_err": _max_err(got, want),
         }
         shape["gcells_per_s"] = cells / shape["ms"] / 1e6
+        shape["kernel_ms"] = _launch_ms(g.KERNEL_PM1, lambda: (
+            g.match_grid_mxu_cuda(a, b, k, tile, in_dtype=dtype)))
+        shape["kernel_gcells_per_s"] = cells / shape["kernel_ms"] / 1e6
+        row_bytes = g.pm1_depth(k, dtype) * g.IN_DTYPES[dtype].itemsize
+        if k <= g.WGMMA_MAX_K:
+            stages, smem = g.pm1_wgmma_shape(row_bytes)
+            shape["kernel"] = {"name": "pm1_wgmma_kernel", "ring_stages": stages,
+                               "dynamic_smem_bytes": smem,
+                               "ptxas": _ptxas_usage("pm1_wgmma_kernel")}
         del a_pm, b_pm
         shapes.append(shape)
         log(f"[timing] dotplot_match_grid_mxu {json.dumps(shape)}")

@@ -72,17 +72,22 @@ def test_match_grid_matches_jax(tile):
 
 
 @pytest.mark.parametrize("in_dtype", ["bfloat16", "int8"])
-@pytest.mark.parametrize("k", [5, 32, 55])
+@pytest.mark.parametrize("k", [5, 32, 55, 1, 8, 64, 65])
 def test_match_grid_mxu_matches_jax(k, in_dtype):
+    """k = 1 and 8 pad int8 most on the card; k = 64 is the wgmma kernel's
+    deepest, k = 65 the generic kernel's shallowest."""
     a, b = _shared_pair(7, k, n_a=500, chunk=(50, 350), tail=200)
     b = b[300:]
     aw, bw = grid.pack_2bit_words(a, k), grid.pack_2bit_words(b, k)
-    want = np.asarray(jgrid.match_grid_mxu(aw, bw, k, tile=256,
-                                           in_dtype=in_dtype))
-    got = grid.match_grid_mxu(_t(aw), _t(bw), k, tile=256, in_dtype=in_dtype)
-    np.testing.assert_array_equal(got.numpy(), want)
-    np.testing.assert_array_equal(
-        got.numpy(), grid.match_grid(_t(aw), _t(bw), 256, 256).numpy())
+    for tile in (256, 128):
+        want = np.asarray(jgrid.match_grid_mxu(aw, bw, k, tile=tile,
+                                               in_dtype=in_dtype))
+        got = grid.match_grid_mxu(_t(aw), _t(bw), k, tile=tile,
+                                  in_dtype=in_dtype)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(
+            got.numpy(), grid.match_grid(_t(aw), _t(bw), tile, tile).numpy())
+        assert want.sum() > 0
 
 
 def test_poly_t_padding_never_counts():
