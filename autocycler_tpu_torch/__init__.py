@@ -10,12 +10,14 @@ Layering (bottom → top):
 
 - ``utils``    — I/O, logging, small helpers, substage timing
 - ``models``   — Sequence / Position / Unitig / UnitigGraph data model
-- ``device``   — device resolution and the kernels' launch counters
+- ``device``   — device resolution, the kernels' launch counters and the
+                 DPs' dispatch records
 - ``ops``      — device grouping (the sort-network kernel), k-mer index,
                  chains, end repair, graph assembly, cluster distances,
-                 the dotplot match grids (two match-grid kernels)
+                 the dotplot match grids (two match-grid kernels), the
+                 trim and resolve alignment DPs (torch ops)
 - ``commands`` — the ported subcommands: compress, decompress, cluster,
-                 dotplot
+                 trim, resolve, combine, dotplot
 - ``cli``      — argparse front-end
 """
 

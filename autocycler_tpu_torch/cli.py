@@ -1,9 +1,11 @@
 """Command-line interface of the port: the subcommands ported so far, with
 the JAX package's flags and defaults (reference main.rs).
 
-``compress``, ``cluster`` and ``dotplot`` run their device work on CUDA;
-without a CUDA device they fail with ``Error: ...`` and exit code 1.
-``decompress`` is host code only.
+``compress``, ``cluster``, ``trim``, ``resolve`` and ``dotplot`` run their
+device work on CUDA; without a CUDA device they fail with ``Error: ...``
+and exit code 1. ``decompress`` and ``combine`` are host code only. The main
+path is compress → cluster → trim → resolve (each QC-pass cluster) →
+combine.
 """
 
 from __future__ import annotations
@@ -32,6 +34,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_contigs", type=int, default=25)
     p.add_argument("--manual")
 
+    p = sub.add_parser("combine", help="combine Autocycler GFAs into one assembly")
+    p.add_argument("-a", "--autocycler_dir", required=True)
+    p.add_argument("-i", "--in_gfas", required=True, nargs="+")
+
     p = sub.add_parser("compress", help="compress input contigs into a unitig graph")
     p.add_argument("-i", "--assemblies_dir", required=True)
     p.add_argument("-a", "--autocycler_dir", required=True)
@@ -57,6 +63,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "card); device counts matches per tile with the "
                         "word-compare match-grid kernel on the card, then "
                         "refines the nonzero tiles exactly")
+
+    p = sub.add_parser("resolve", help="resolve repeats in the unitig graph")
+    p.add_argument("-c", "--cluster_dir", required=True)
+    p.add_argument("--verbose", action="store_true")
+
+    p = sub.add_parser("trim", help="trim contigs in a cluster")
+    p.add_argument("-c", "--cluster_dir", required=True)
+    p.add_argument("--min_identity", type=float, default=0.75)
+    p.add_argument("--max_unitigs", type=int, default=5000)
+    p.add_argument("--mad", type=float, default=5.0)
+    p.add_argument("-t", "--threads", type=int, default=8)
     return parser
 
 
@@ -65,6 +82,9 @@ def dispatch(args) -> None:
         from .commands.cluster import cluster
         cluster(args.autocycler_dir, args.cutoff, args.min_assemblies,
                 args.max_contigs, args.manual)
+    elif args.command == "combine":
+        from .commands.combine import combine
+        combine(args.autocycler_dir, args.in_gfas)
     elif args.command == "compress":
         from .commands.compress import compress
         compress(args.assemblies_dir, args.autocycler_dir, args.kmer,
@@ -75,6 +95,13 @@ def dispatch(args) -> None:
     elif args.command == "dotplot":
         from .commands.dotplot import dotplot
         dotplot(args.input, args.out_png, args.res, args.kmer, args.grid_mode)
+    elif args.command == "resolve":
+        from .commands.resolve import resolve
+        resolve(args.cluster_dir, args.verbose)
+    elif args.command == "trim":
+        from .commands.trim import trim
+        trim(args.cluster_dir, args.min_identity, args.max_unitigs, args.mad,
+             args.threads)
 
 
 def main(argv=None) -> int:

@@ -8,6 +8,12 @@ Every hand-written kernel's wrapper launches it through :func:`launch` (or
 :func:`kernel_launch`, for a kernel of several passes), which counts the
 launch and puts CUDA events around it, so a run can show
 that its main path went through the kernels and how long they took.
+
+The alignment DPs of trim and resolve are torch ops on the device, not
+hand-written kernels. Each of their dispatches goes through
+:func:`dp_dispatch`, which records its shape (rows, jobs or pairs, cells)
+on every device and its CUDA-event time on the card, under its own name,
+apart from the kernels' counters.
 """
 
 from __future__ import annotations
@@ -24,6 +30,10 @@ launches: Dict[str, int] = {"sortnet_pack_rank": 0, "dotplot_match_grid": 0,
                              "dotplot_match_grid_mxu": 0}
 _events: Dict[str, List[Tuple[torch.cuda.Event, torch.cuda.Event]]] = {
     name: [] for name in launches}
+# torch-op DP name -> one record per dispatch since the last reset_counts():
+# its shape as the caller gave it, and on the card its CUDA events
+dp_dispatches: Dict[str, List[dict]] = {"trim_overlap_dp": [],
+                                        "resolve_medoid_dp": []}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -75,10 +85,52 @@ def record_launch(name: str, start: torch.cuda.Event,
     _events[name].append((start, end))
 
 
+@contextlib.contextmanager
+def dp_dispatch(name: str, device: torch.device, **shape):
+    """One dispatch of the torch-op DP ``name`` on ``device``, recorded with
+    its ``shape`` (for example rows, jobs or pairs, cells); on the card,
+    timed with CUDA events around everything enqueued inside the block."""
+    record = dict(shape)
+    dp_dispatches[name].append(record)
+    if device.type != "cuda":
+        yield
+        return
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        yield
+        end.record(stream)
+    record["events"] = (start, end)
+
+
+def dp_summary(name: str) -> dict:
+    """Dispatches of DP ``name`` since the last reset: their count, their
+    summed shape and, for those on the card, their summed CUDA-event
+    ``ms`` (synchronises), with the per-dispatch records under ``each``."""
+    records = dp_dispatches[name]
+    if any("events" in r for r in records):
+        torch.cuda.synchronize()
+    each = []
+    for r in records:
+        row = {key: value for key, value in r.items() if key != "events"}
+        if "events" in r:
+            row["ms"] = r["events"][0].elapsed_time(r["events"][1])
+        each.append(row)
+    totals: Dict[str, float] = {}
+    for row in each:
+        for key, value in row.items():
+            totals[key] = totals.get(key, 0) + value
+    return {"dispatches": len(each), **totals, "each": each}
+
+
 def reset_counts() -> None:
     for name in launches:
         launches[name] = 0
         _events[name].clear()
+    for records in dp_dispatches.values():
+        records.clear()
 
 
 def kernel_ms(name: str) -> float:

@@ -3,7 +3,7 @@
 Parity target: reference metrics.rs:24-273 — one dataclass per pipeline stage
 and a save_to_yaml helper. YAML is emitted without external dependencies (the
 structures are simple: scalars, lists, nested records). The port carries the
-metrics of its ported stages: compress and cluster.
+metrics of its ported stages: compress, cluster, trim and combine.
 """
 
 from __future__ import annotations
@@ -155,3 +155,33 @@ class UntrimmedClusterMetrics(MetricsBase):
                    untrimmed_cluster_median=median(sequence_lengths),
                    untrimmed_cluster_mad=mad(sequence_lengths),
                    untrimmed_cluster_distance=distance)
+
+
+@dataclass
+class TrimmedClusterMetrics(MetricsBase):
+    trimmed_cluster_size: int = 0
+    trimmed_cluster_lengths: List[int] = field(default_factory=list)
+    trimmed_cluster_median: int = 0
+    trimmed_cluster_mad: int = 0
+
+    @classmethod
+    def new(cls, sequence_lengths: List[int]):
+        return cls(trimmed_cluster_size=len(sequence_lengths),
+                   trimmed_cluster_lengths=sequence_lengths,
+                   trimmed_cluster_median=median(sequence_lengths),
+                   trimmed_cluster_mad=mad(sequence_lengths))
+
+
+@dataclass
+class ResolvedClusterDetails(MetricsBase):
+    length: int = 0
+    unitigs: int = 0
+    topology: str = ""
+
+
+@dataclass
+class CombineMetrics(MetricsBase):
+    consensus_assembly_bases: int = 0
+    consensus_assembly_unitigs: int = 0
+    consensus_assembly_fully_resolved: bool = False
+    consensus_assembly_clusters: List[ResolvedClusterDetails] = field(default_factory=list)

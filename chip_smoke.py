@@ -9,17 +9,29 @@ Phases (any failure exits non-zero, and the result lines are not printed):
 2. kernels — hold each kernel against its plain PyTorch version on the card
              (exact equality: the outputs are integers), the +-1 product
              also at the edges of its wgmma design (bands, stages, depth
-             padding, work units, the generic path at k = 65).
+             padding, work units, the generic path at k = 65); then [dp]:
+             the two alignment DPs (torch ops) on the card against the
+             same functions on CPU tensors, exact.
 3. main    — the headline configuration (24 assemblies of a 6 Mbp chromosome
              + 120 kb plasmid, seed 7) through the port's CLI: compress at
              k=51, then decompress, which must restore the input FASTAs byte
              for byte; then cluster (2 QC-pass clusters), the plasmid
              cluster's dotplot in auto and in device grid mode (identical
-             PNGs) and the chromosome cluster's dotplot (24 x 6 Mbp, 576
-             pairs) in auto mode. Each path's kernels
-             must have been launched in it. A small input also goes through
-             compress, cluster and dotplot on the card and on the CPU (the
-             kernels' plain versions), which must write the same bytes.
+             PNGs), the chromosome cluster's dotplot (24 x 6 Mbp, 576
+             pairs) in auto mode, and trim, resolve and combine: a
+             consensus of 2 circular records equal to the generator's
+             replicons up to rotation and strand. Then the overlap
+             configuration, the headline with each contig's first
+             2-20 kb (chromosome) or 0.5-5 kb (plasmid) appended to its
+             end, through compress, cluster, trim (whose overlap DP must
+             run on the card and cut every contig back to its replicon's
+             length), resolve and combine (the same consensus); its
+             chromosome trim runs once more under the profiler. Each
+             path's kernels must have been launched in it. Two small
+             inputs (start-end overlaps; a hairpin at both ends) also go
+             through compress, cluster, dotplot, trim, resolve and combine
+             on the card and on the CPU (the kernels' plain versions),
+             which must write the same bytes.
 4. grid    — the match-grid throughput entry (benchmark_gcells) at 524,288^2
              and k=32 for the word kernel and both product kernels; at equal
              tiles the three grids must equal one another and the plain
@@ -65,6 +77,14 @@ GRID_N = 524_288                   # the match-grid entry's own sizes
 GRID_K = 32
 HEADLINE = dict(n_assemblies=24, chromosome_len=6_000_000,
                 plasmid_len=120_000, n_snps=600, seed=7)
+# the overlap configuration: bases of each contig's start appended to its
+# end, a length drawn uniformly from these ranges (chromosome, plasmid).
+# The ranges come from no published measurement of assembler overlaps: they
+# are chosen so that every contig carries an overlap and trim's DP runs. Its
+# time depends on the window K (capped at --max_unitigs), not on these
+# lengths, once a job passes the host screen.
+OVERLAPS = ((2_000, 20_000), (500, 5_000))
+OVERLAP_SEED = 11
 KERNEL_SOURCES = {
     "sortnet_pack_rank": {
         "route": "cuda",
@@ -105,6 +125,80 @@ def phase_kernels() -> None:
     kernels_sortnet()
     kernels_match_grid()
     kernels_pm1_edges()
+    check_dps()
+
+
+def _random_path(rng, n: int, n_units: int, overlap):
+    path = (rng.integers(1, n_units + 1, size=n)
+            * rng.choice([-1, 1], size=n)).tolist()
+    if overlap == "start_end":
+        path[-5:] = path[:5]
+    elif overlap == "hairpin":
+        path[-5:] = [-u for u in reversed(path[-10:-5])]
+    return path
+
+
+def _trim_jobs(path, weights):
+    rev = [-u for u in reversed(path)]
+    return [(path, path, weights, True), (path, rev, weights, False),
+            (rev, path, weights, False)]
+
+
+def check_dps() -> None:
+    """The two alignment DPs are torch ops, not hand-written kernels: this
+    holds their CUDA semantics against the same functions on CPU tensors,
+    exact. The overlap DP's edges and packed bits and the decoded pieces, on
+    random trim jobs (start-end with the diagonal skipped, hairpin start and
+    end) with weights up to 2**27 (past the JAX package's int32 domain), at
+    K = 1, a small max_unitigs, and K = 5000; the medoid DP's distances on
+    pairs of up to 64 unitigs and longer."""
+    from autocycler_tpu_torch.ops import align
+
+    rng = np.random.default_rng(17)
+    jobs = []
+    for trial in range(60):
+        n_units = int(rng.integers(2, 40))
+        w = np.zeros(n_units + 1, np.int64)
+        w[1:] = rng.integers(1, 1 << 27 if trial % 4 == 0 else 500,
+                             size=n_units)
+        jobs += _trim_jobs(_random_path(rng, int(rng.integers(1, 400)), n_units,
+                                        ("start_end", "hairpin", None)[trial % 3]),
+                           w)
+    body = _random_path(rng, 6000, 100_000, None)
+    w_big = np.zeros(100_001, np.int64)
+    w_big[1:] = rng.integers(50, 500, size=100_000)
+    cases = [("random", jobs, 5000), ("random, max_unitigs 7", jobs, 7),
+             ("K=1", _trim_jobs([3], {3: 9}) + _trim_jobs([-2], {2: 4}), 5000),
+             ("K=5000", _trim_jobs(body + body[:500], w_big)[:2], 5000)]
+    for label, batch, max_unitigs in cases:
+        arrs = {dev: align.pack_overlap_jobs(batch, max_unitigs, dev)
+                for dev in ("cuda", "cpu")}
+        got = align.overlap_screen_traceback(arrs["cuda"])
+        want = align.overlap_screen_traceback(arrs["cpu"])
+        for name, a, b in zip(("edges", "bits"), got, want):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"[dp] overlap DP {label}: {name} on the "
+                                     "card differ from the CPU's")
+        pieces = align.overlap_tracebacks_batch(batch, max_unitigs, 0.5, "cuda")
+        if pieces != align.overlap_tracebacks_batch(batch, max_unitigs, 0.5,
+                                                    "cpu"):
+            raise AssertionError(f"[dp] overlap DP {label}: decoded pieces on "
+                                 "the card differ from the CPU's")
+        log(f"[dp] trim overlap DP {label}: {len(batch)} jobs, K "
+            f"{arrs['cpu']['A'].shape[1]}, edges, bits and pieces equal on the "
+            f"card and the CPU ({sum(bool(p) for p in pieces)} alignments)")
+    weights = {u: int(rng.integers(1, 1 << 27)) for u in range(1, 12)}
+    for max_len in (64, 200):
+        pairs = [tuple(tuple(_random_path(rng, int(rng.integers(0, max_len + 1)),
+                                          11, None)) for _ in range(2))
+                 for _ in range(100)]
+        got = align.global_alignment_distance_batch(pairs, weights, "cuda")
+        if not np.array_equal(got, align.global_alignment_distance_batch(
+                pairs, weights, "cpu")):
+            raise AssertionError(f"[dp] medoid DP, pairs up to {max_len}: "
+                                 "the card differs from the CPU")
+        log(f"[dp] resolve medoid DP: 100 pairs of up to {max_len} unitigs "
+            "equal on the card and the CPU")
 
 
 def _oversized_buckets(rng, plan, k: int):
@@ -312,34 +406,95 @@ def _same_files(a: Path, b: Path) -> bool:
             and all((a / n).read_bytes() == (b / n).read_bytes() for n in names))
 
 
+def append_start_overlaps(asm_dir: Path, rng, chromosome_range,
+                          plasmid_range) -> Path:
+    """Append to each contig its own first L bases, L uniform in its
+    replicon's range (each file holds the chromosome, then the plasmid), in
+    assembly order: the start-end overlap an assembler leaves on a circular
+    contig."""
+    for path in sorted(asm_dir.glob("assembly_*.fasta"),
+                       key=lambda f: int(f.stem.split("_")[1])):
+        lines = path.read_text().splitlines()
+        for i, (low, high) in zip((1, 3), (chromosome_range, plasmid_range)):
+            lines[i] += lines[i][:int(rng.integers(low, high + 1))]
+        path.write_text("\n".join(lines) + "\n")
+    return asm_dir
+
+
+def _hairpin_both_ends(root: Path) -> Path:
+    """3 assemblies of one linear contig with a hairpin at each end
+    (revcomp(body[:300]) + body + revcomp(body[-400:]), 2 SNPs each): trim
+    cuts both ends, the end in a second device round."""
+    import random
+
+    from synthetic import mutate, random_genome, revcomp
+    rng = random.Random(1)
+    body = random_genome(rng, 3000)
+    contig = revcomp(body[:300]) + body + revcomp(body[-400:])
+    asm = root / "assemblies"
+    asm.mkdir(parents=True)
+    for i in range(1, 4):
+        (asm / f"assembly_{i}.fasta").write_text(
+            f">contig_1\n{mutate(rng, contig, 2)}\n")
+    return asm
+
+
 def small_pipeline(work: Path) -> None:
-    """compress -> cluster -> dotplot of a small input on the card and on
-    the CPU (the kernels' plain versions): the same bytes everywhere."""
+    """compress -> cluster -> dotplot -> trim -> resolve -> combine of small
+    inputs on the card and on the CPU (the kernels' plain versions): the
+    same bytes everywhere. One input has start-end overlaps to trim; the
+    other a hairpin at both ends, whose end the card trims in a second
+    round of the overlap DP."""
     from synthetic import make_assemblies
 
+    from autocycler_tpu_torch import device
     from autocycler_tpu_torch.commands.cluster import cluster
+    from autocycler_tpu_torch.commands.combine import combine
     from autocycler_tpu_torch.commands.compress import compress
     from autocycler_tpu_torch.commands.dotplot import dotplot
-    small = make_assemblies(work / "small", n_assemblies=4,
-                            chromosome_len=30_000, plasmid_len=4_000,
-                            n_snps=10, seed=3)
-    for dev in ("cuda", "cpu"):
-        out = work / f"small_{dev}"
-        with contextlib.redirect_stderr(io.StringIO()):
-            compress(small, out, 51, device=dev)
-            cluster(out, device=dev)
-            for c in sorted((out / "clustering" / "qc_pass").iterdir()):
-                gfa = c / "1_untrimmed.gfa"
-                dotplot(gfa, c / "auto.png", device=dev)
-                if c.name == "cluster_002":
-                    dotplot(gfa, c / "device.png", grid_mode="device",
-                            device=dev)
-    if not _same_files(work / "small_cuda", work / "small_cpu"):
-        raise AssertionError("[main] small compress/cluster/dotplot on the "
-                             "card differs from the CPU's plain versions")
+    from autocycler_tpu_torch.commands.resolve import resolve
+    from autocycler_tpu_torch.commands.trim import trim
+    small = append_start_overlaps(
+        make_assemblies(work / "small", n_assemblies=4, chromosome_len=30_000,
+                        plasmid_len=4_000, n_snps=10, seed=3),
+        np.random.default_rng(OVERLAP_SEED), (500, 5_000), (100, 1_000))
+    hairpins = _hairpin_both_ends(work / "hairpins")
+    for name, asm in (("small", small), ("hairpins", hairpins)):
+        for dev in ("cuda", "cpu"):
+            out = work / f"{name}_{dev}"
+            device.reset_counts()
+            with contextlib.redirect_stderr(io.StringIO()) as err:
+                compress(asm, out, 51, device=dev)
+                cluster(out, device=dev)
+                clusters = sorted((out / "clustering" / "qc_pass").iterdir())
+                for c in clusters:
+                    gfa = c / "1_untrimmed.gfa"
+                    dotplot(gfa, c / "auto.png", device=dev)
+                    if c.name == "cluster_002":
+                        dotplot(gfa, c / "device.png", grid_mode="device",
+                                device=dev)
+                    trim(c, device=dev)
+                    resolve(c, device=dev)
+                combine(out, [c / "5_final.gfa" for c in clusters])
+            trims = device.dp_summary("trim_overlap_dp")["dispatches"]
+            if dev == "cuda":
+                log(f"[main] {name}: trim overlap DP dispatches on the card "
+                    f"{trims}, trims logged "
+                    f"{err.getvalue().count(': trimmed ')}")
+                if name == "hairpins" and trims < 2 * len(clusters):
+                    raise AssertionError("[main] the hairpin input ran no "
+                                         "second round of the overlap DP")
+                if name == "small" and not trims:
+                    raise AssertionError("[main] the small input's trim "
+                                         "never dispatched its overlap DP")
+        if not _same_files(work / f"{name}_cuda", work / f"{name}_cpu"):
+            raise AssertionError(f"[main] {name} compress/cluster/dotplot/"
+                                 "trim/resolve/combine on the card differs "
+                                 "from the CPU's plain versions")
     plots = sorted(p.name for p in (work / "small_cuda").rglob("*.png"))
-    log(f"[main] small compress, cluster and dotplot ({len(plots)} PNGs): "
-        "card and CPU outputs byte-identical")
+    log(f"[main] small inputs through compress, cluster, dotplot "
+        f"({len(plots)} PNGs), trim, resolve and combine: card and CPU "
+        "outputs byte-identical")
 
 
 def phase_main(work: Path):
@@ -409,13 +564,123 @@ def phase_main(work: Path):
         "contigs in input_assemblies.yaml")
     profile_compress(asm, work / "out_profiled", out)
     paths, plasmid_pair, dotplot_groupings = cluster_and_dotplot(work, out)
+    replicons = headline_replicons()
+    runs = trim_resolve_combine("headline", out, replicons)
+    if not sum(r["dp"]["resolve_medoid_dp"]["dispatches"] for r in runs):
+        raise AssertionError("[main] headline resolve never dispatched its "
+                             "medoid DP")
+    overlap_configuration(work, replicons)
     return ({"compress": launches, **paths}, captured, plasmid_pair,
             dotplot_groupings)
 
 
-def run_cli(label: str, argv):
-    """One CLI call with every launch count set to 0 just before it and
-    read just after. Returns the launches."""
+def headline_replicons():
+    """The headline's chromosome and plasmid, drawn again as
+    make_assemblies_fast draws them (chromosome first)."""
+    from synthetic import random_genome_fast
+    rng = np.random.default_rng(HEADLINE["seed"])
+    return [random_genome_fast(rng, HEADLINE["chromosome_len"]),
+            random_genome_fast(rng, HEADLINE["plasmid_len"])]
+
+
+def _revcomp(seq: str) -> str:
+    return seq.translate(str.maketrans("ACGT", "TGCA"))[::-1]
+
+
+def _yaml_list(path: Path, key: str):
+    """The integers of one block list in a stage YAML."""
+    lines = path.read_text().splitlines()
+    start = lines.index(f"{key}:") + 1
+    values = []
+    for line in lines[start:]:
+        if not line.startswith("- "):
+            break
+        values.append(int(line[2:]))
+    return values
+
+
+def trim_resolve_combine(label: str, out: Path, replicons):
+    """trim and resolve on each QC-pass cluster, then combine, through the
+    CLI. The consensus must hold 2 circular records, each equal to one of
+    the generator's replicons up to rotation and strand, and be fully
+    resolved. Returns the runs of trim and resolve."""
+    clusters = sorted((out / "clustering" / "qc_pass").iterdir())
+    runs = []
+    for c in clusters:
+        runs.append(run_cli(f"{label} trim {c.name}", ["trim", "-c", c]))
+        runs.append(run_cli(f"{label} resolve {c.name}",
+                            ["resolve", "-c", c]))
+    run_cli(f"{label} combine", ["combine", "-a", out, "-i",
+                                 *[c / "5_final.gfa" for c in clusters]])
+    lines = (out / "consensus_assembly.fasta").read_text().splitlines()
+    records = list(zip(lines[0::2], lines[1::2]))
+    if len(records) != 2 or not all("circular=true" in h for h, _ in records):
+        raise AssertionError(f"[main] {label} consensus: "
+                             f"{[h for h, _ in records]}, expected 2 "
+                             "circular records")
+    for header, seq in records:
+        if not any(len(seq) == len(r) and (seq in r + r or _revcomp(seq) in r + r)
+                   for r in replicons):
+            raise AssertionError(f"[main] {label} consensus record {header} "
+                                 "is no rotation of a generated replicon")
+    if "consensus_assembly_fully_resolved: true" not in \
+            (out / "consensus_assembly.yaml").read_text():
+        raise AssertionError(f"[main] {label} consensus is not fully resolved")
+    log(f"[main] {label} consensus: {[h for h, _ in records]}, fully "
+        "resolved, each record equal to a generated replicon up to rotation "
+        "and strand")
+    return runs
+
+
+def overlap_configuration(work: Path, replicons) -> None:
+    """The headline with each contig's first bases appended to its end (a
+    start-end overlap), through the whole pipeline: trim's overlap DP runs
+    on the card and cuts every contig back to its replicon's length."""
+    from synthetic import make_assemblies_fast
+
+    t0 = time.perf_counter()
+    asm = append_start_overlaps(make_assemblies_fast(work / "overlap", **HEADLINE),
+                                np.random.default_rng(OVERLAP_SEED), *OVERLAPS)
+    total = sum(len(line) for f in asm.iterdir()
+                for line in f.read_text().splitlines()[1::2])
+    log(f"[main] overlap configuration generated in "
+        f"{time.perf_counter() - t0:.3f} s: {total} bp, overlaps {OVERLAPS}")
+    out = work / "overlap_out"
+    run_cli("overlap compress", ["compress", "-i", asm, "-a", out,
+                                 "--kmer", "51"])
+    run_cli("overlap cluster", ["cluster", "-a", out])
+    clusters = sorted((out / "clustering" / "qc_pass").iterdir())
+    if len(clusters) != 2:
+        raise AssertionError(f"[main] overlap cluster: {len(clusters)} QC-pass "
+                             "clusters, expected 2")
+    runs = trim_resolve_combine("overlap", out, replicons)
+    trims = runs[0::2]                  # trim, resolve for each cluster
+    for c, run in zip(clusters, trims):
+        lengths = _yaml_list(c / "2_trimmed.yaml", "trimmed_cluster_lengths")
+        if len(set(lengths)) != 1 or lengths[0] not in (
+                HEADLINE["chromosome_len"], HEADLINE["plasmid_len"]):
+            raise AssertionError(f"[main] overlap trim {c.name}: lengths "
+                                 f"{sorted(set(lengths))}")
+        dp = run["dp"]["trim_overlap_dp"]
+        log(f"[main] overlap trim {c.name}: {len(lengths)} contigs trimmed to "
+            f"{lengths[0]} bp; trim/overlaps {run['substages']['trim/overlaps']}"
+            f" s; trim_overlap_dp dispatches {json.dumps(dp['each'])}")
+    if not sum(r["dp"]["trim_overlap_dp"]["dispatches"] for r in trims):
+        raise AssertionError("[main] overlap trim never dispatched its "
+                             "overlap DP")
+    # the chromosome trim once more under the profiler: how much of its
+    # overlap DP's time the card is busy
+    chromosome = max(clusters, key=_cluster_median)
+    trimmed = (chromosome / "2_trimmed.gfa").read_bytes()
+    profile_cli("overlap trim, chromosome cluster", ["trim", "-c", chromosome])
+    if (chromosome / "2_trimmed.gfa").read_bytes() != trimmed:
+        raise AssertionError("[profile] the profiled trim differs")
+
+
+def run_cli(label: str, argv) -> dict:
+    """One CLI call with every launch count and DP record set to 0 just
+    before it and read just after. Returns its launches, DP dispatches
+    and substages; its wall seconds go to the log."""
     from autocycler_tpu_torch import cli, device
     from autocycler_tpu_torch.utils import timing
 
@@ -430,13 +695,17 @@ def run_cli(label: str, argv):
     wall = time.perf_counter() - t0
     launches = dict(device.launches)
     kernel_ms = {n: device.kernel_ms(n) for n, c in launches.items() if c}
+    dps = {n: device.dp_summary(n) for n in device.dp_dispatches}
     if rc != 0:
         raise RuntimeError(f"[main] {label} exited {rc}:\n"
                            f"{stderr.getvalue()[-3000:]}")
+    dp_text = "".join(
+        f", {n} {json.dumps({k: v for k, v in d.items() if k != 'each'})}"
+        for n, d in dps.items() if d["dispatches"])
     log(f"[main] {label}: wall {wall} s, launches {launches}, kernel time "
         f"(ms, CUDA events) {json.dumps(kernel_ms)}, substages (s) "
-        f"{json.dumps(timing.seconds)}")
-    return launches
+        f"{json.dumps(timing.seconds)}{dp_text}")
+    return {"launches": launches, "dp": dps, "substages": dict(timing.seconds)}
 
 
 def _cluster_median(cluster_dir: Path) -> int:
@@ -472,7 +741,7 @@ def cluster_and_dotplot(work: Path, out: Path):
     grid mode (identical PNGs), and the chromosome cluster in auto mode."""
     from autocycler_tpu_torch.ops import dotplot_grid
 
-    paths = {"cluster": run_cli("cluster", ["cluster", "-a", out])}
+    paths = {"cluster": run_cli("cluster", ["cluster", "-a", out])["launches"]}
     qc_pass = sorted((out / "clustering" / "qc_pass").iterdir())
     if len(qc_pass) != 2:
         raise AssertionError(f"[main] cluster: {len(qc_pass)} QC-pass "
@@ -485,7 +754,7 @@ def cluster_and_dotplot(work: Path, out: Path):
     with first_grouping_inputs() as plasmid_grouping:
         paths["dotplot auto"] = run_cli(
             "plasmid cluster dotplot, auto",
-            ["dotplot", "-i", plasmid, "-o", pngs["auto"]])
+            ["dotplot", "-i", plasmid, "-o", pngs["auto"]])["launches"]
     pairs = []
     real = dotplot_grid.match_grid_cuda
 
@@ -499,7 +768,7 @@ def cluster_and_dotplot(work: Path, out: Path):
         paths["dotplot device"] = run_cli(
             "plasmid cluster dotplot, --grid-mode device",
             ["dotplot", "-i", plasmid, "-o", pngs["device"],
-             "--grid-mode", "device"])
+             "--grid-mode", "device"])["launches"]
     finally:
         dotplot_grid.match_grid_cuda = real
     if paths["dotplot auto"]["sortnet_pack_rank"] == 0 \
@@ -520,7 +789,7 @@ def cluster_and_dotplot(work: Path, out: Path):
     with first_grouping_inputs() as chromosome_grouping:
         paths["dotplot chromosomes"] = run_cli(
             "chromosome cluster dotplot, auto",
-            ["dotplot", "-i", chromosome, "-o", work / "chromosomes.png"])
+            ["dotplot", "-i", chromosome, "-o", work / "chromosomes.png"])["launches"]
     if paths["dotplot chromosomes"]["sortnet_pack_rank"] == 0:
         raise AssertionError("[main] the chromosome dotplot launched no "
                              "kernel")

@@ -27,6 +27,9 @@ def test_port_runs_compress_without_jax(tmp_path):
         "from autocycler_tpu_torch.commands.decompress import decompress\n"
         "from autocycler_tpu_torch.commands.cluster import cluster\n"
         "from autocycler_tpu_torch.commands.dotplot import dotplot\n"
+        "from autocycler_tpu_torch.commands.trim import trim\n"
+        "from autocycler_tpu_torch.commands.resolve import resolve\n"
+        "from autocycler_tpu_torch.commands.combine import combine\n"
         f"compress({str(asm)!r}, {str(tmp_path / 'out')!r}, device='cpu')\n"
         f"decompress({str(tmp_path / 'out' / 'input_assemblies.gfa')!r}, "
         f"{str(tmp_path / 'recon')!r})\n"
@@ -34,6 +37,13 @@ def test_port_runs_compress_without_jax(tmp_path):
         f"dotplot({str(tmp_path / 'out' / 'input_assemblies.gfa')!r}, "
         f"{str(tmp_path / 'plot.png')!r}, res=500, kmer=12, "
         "grid_mode='device', device='cpu')\n"
+        "from pathlib import Path\n"
+        f"out = Path({str(tmp_path / 'out')!r})\n"
+        "clusters = sorted((out / 'clustering' / 'qc_pass').iterdir())\n"
+        "for c in clusters:\n"
+        "    trim(c, device='cpu')\n"
+        "    resolve(c, device='cpu')\n"
+        "combine(out, [c / '5_final.gfa' for c in clusters])\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'autocycler_tpu' or m.startswith('autocycler_tpu.')]\n"
         "print('LOADED', bad)\n")
@@ -48,6 +58,8 @@ def test_port_runs_compress_without_jax(tmp_path):
         (asm / "assembly_1.fasta").read_bytes()
     assert (tmp_path / "out/clustering/clustering.tsv").is_file()
     assert (tmp_path / "plot.png").is_file()
+    assert (tmp_path / "out/consensus_assembly.fasta").read_text().count(
+        "circular=true") == 2
 
 
 def test_no_port_file_imports_jax_or_the_jax_package():
@@ -91,6 +103,31 @@ def test_cluster_and_dotplot_without_cuda_exit_1(tmp_path, monkeypatch,
         assert "Error:" in err and "CUDA" in err
     assert not (tmp_path / "out" / "clustering").exists()
     assert not (tmp_path / "plot.png").exists()
+
+
+def test_trim_and_resolve_without_cuda_exit_1(tmp_path, monkeypatch, capsys):
+    from synthetic import make_assemblies
+
+    from autocycler_tpu_torch import cli
+    from autocycler_tpu_torch.commands.cluster import cluster
+    from autocycler_tpu_torch.commands.compress import compress
+    from autocycler_tpu_torch.commands.trim import trim
+    asm = make_assemblies(tmp_path, n_assemblies=2, chromosome_len=3000,
+                          plasmid_len=500)
+    compress(asm, tmp_path / "out", device="cpu")
+    cluster(tmp_path / "out", device="cpu")
+    clusters = sorted((tmp_path / "out/clustering/qc_pass").iterdir())
+    trim(clusters[0], device="cpu")      # resolve's input, in one cluster
+    capsys.readouterr()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for argv in (["trim", "-c", str(clusters[1])],
+                 ["resolve", "-c", str(clusters[0])]):
+        assert cli.main(argv) == 1
+        err = capsys.readouterr().err
+        assert "Error:" in err and "CUDA" in err
+    assert not (clusters[1] / "2_trimmed.gfa").exists()
+    assert not (clusters[0] / "3_bridged.gfa").exists()
+    assert not (clusters[0] / "5_final.gfa").exists()
 
 
 def test_cli_reports_user_errors(tmp_path, capsys):
