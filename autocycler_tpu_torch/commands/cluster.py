@@ -9,11 +9,10 @@ against the clustering score (balance + tightness), QC the clusters
 (min_assemblies / containment / trusted overrides), and write per-cluster
 1_untrimmed.gfa checkpoints plus PHYLIP, Newick, TSV and YAML outputs.
 
-The port runs the exact distance path. Minimizer-sketch distances, which
-``AUTOCYCLER_SKETCH_DISTANCE`` selects (and its ``auto`` from
-``AUTOCYCLER_SKETCH_MIN_CONTIGS`` contigs on), are not ported yet: when
-that mode resolves, the command fails instead of computing exact distances
-in their place.
+``AUTOCYCLER_SKETCH_DISTANCE`` picks the distances as in the JAX package:
+the exact contraction, minimizer-sketch distances (ops.sketch; ``auto``
+from ``AUTOCYCLER_SKETCH_MIN_CONTIGS`` contigs on), or ``verify``, which
+computes both and clusters from the exact ones.
 """
 
 from __future__ import annotations
@@ -30,9 +29,11 @@ from ..metrics import ClusteringMetrics, UntrimmedClusterMetrics
 from ..models import Sequence, UnitigGraph
 from ..models.simplify import merge_linear_paths
 from ..ops.distance import pairwise_contig_distances
+from ..ops.sketch import sketch_contig_distances, sketch_params
 from ..utils import (format_float, load_file_lines, log, median, quit_with_error,
                      usize_division_rounded)
-from ..utils.timing import substage
+from ..utils.env import env_int, env_str
+from ..utils.timing import stage_timer
 
 SKETCH_MIN_CONTIGS = 256     # AUTOCYCLER_SKETCH_MIN_CONTIGS's default
 
@@ -654,9 +655,14 @@ def _clone_seq(s: Sequence) -> Sequence:
 
 
 def save_clusters(sequences: List[Sequence], qc_results: Dict[int, ClusterQC],
-                  clustering_dir, graph: UnitigGraph) -> None:
-    """Writes every cluster's 1_untrimmed.gfa/.yaml, one cluster's graph
-    at a time."""
+                  clustering_dir, graph: UnitigGraph,
+                  collect_handoff: bool = False
+                  ) -> Dict[Path, Tuple[UnitigGraph, List[Sequence]]]:
+    """Writes every cluster's 1_untrimmed.gfa/.yaml. With ``collect_handoff``
+    returns {qc-pass cluster dir: (cluster graph, cluster sequences)} for an
+    in-process trim(preloaded=...); otherwise {} and one cluster's graph is
+    alive at a time."""
+    handoff = {}
     for c in range(1, get_max_cluster(sequences) + 1):
         qc = qc_results[c]
         sub = "qc_pass" if qc.passed() else "qc_fail"
@@ -674,10 +680,14 @@ def save_clusters(sequences: List[Sequence], qc_results: Dict[int, ClusterQC],
         else:
             for reason in qc.failure_reasons:
                 log.message(f"  failed QC: {reason}")
-        save_cluster_gfa(sequences, c, graph, cluster_dir / "1_untrimmed.gfa")
+        pair = save_cluster_gfa(sequences, c, graph, cluster_dir / "1_untrimmed.gfa")
+        if collect_handoff and qc.passed():
+            handoff[cluster_dir] = pair
+        del pair
         UntrimmedClusterMetrics.new(lengths, qc.cluster_dist).save_to_yaml(
             cluster_dir / "1_untrimmed.yaml")
         log.message()
+    return handoff
 
 
 def save_data_to_tsv(sequences: List[Sequence], qc_results: Dict[int, ClusterQC],
@@ -701,41 +711,49 @@ def resolve_distance_mode(n_contigs: int) -> str:
     """'exact' | 'sketch' | 'verify' from AUTOCYCLER_SKETCH_DISTANCE, as the
     JAX package resolves it: 'auto' (the default) means sketch from
     AUTOCYCLER_SKETCH_MIN_CONTIGS contigs on."""
-    raw = (os.environ.get("AUTOCYCLER_SKETCH_DISTANCE", "").strip()
-           or "auto").lower()
+    raw = env_str("AUTOCYCLER_SKETCH_DISTANCE", "auto").lower()
     if raw in ("0", "off", "false", "no", "exact"):
         return "exact"
     if raw in ("1", "on", "true", "yes", "sketch"):
         return "sketch"
     if raw == "verify":
         return "verify"
-    try:
-        threshold = int(os.environ.get("AUTOCYCLER_SKETCH_MIN_CONTIGS", "")
-                        .strip() or SKETCH_MIN_CONTIGS)
-    except ValueError:
-        threshold = SKETCH_MIN_CONTIGS
+    threshold = env_int("AUTOCYCLER_SKETCH_MIN_CONTIGS", SKETCH_MIN_CONTIGS)
     return "sketch" if n_contigs >= threshold else "exact"
 
 
 def compute_distances(graph, sequences, device=None
-                      ) -> Dict[Tuple[int, int], float]:
-    """The cluster distance dict, from the exact membership contraction."""
+                      ) -> Tuple[Dict[Tuple[int, int], float], dict]:
+    """The cluster distance dict plus a record ``{"mode", "sketch_s",
+    "sketch_max_abs_error"?}``, as the JAX package's. Sketch mode replaces
+    the exact contraction with bottom-s minimizer sketches and their
+    intersection grid on ``device`` (ops.sketch); 'verify' computes both,
+    returns the exact distances and records the largest difference."""
     mode = resolve_distance_mode(len(sequences))
-    if mode != "exact":
-        quit_with_error(
-            f"sketch distances are not ported yet (distance mode {mode!r} for "
-            f"{len(sequences)} contigs): set AUTOCYCLER_SKETCH_DISTANCE=exact "
-            "or use the JAX package")
-    return pairwise_contig_distances(graph, sequences, device=device)
+    record = {"mode": mode, "sketch_s": sketch_params()[2]}
+    sketch = exact = None
+    if mode in ("sketch", "verify"):
+        sketch = sketch_contig_distances(graph, sequences, device)
+    if mode in ("exact", "verify"):
+        exact = pairwise_contig_distances(graph, sequences, device=device)
+    if mode == "verify":
+        record["sketch_max_abs_error"] = max(
+            (abs(sketch[p] - exact[p]) for p in exact), default=0.0)
+    return (exact if exact is not None else sketch), record
 
 
 # ---------------- entry point ----------------
 
 def cluster(autocycler_dir, cutoff: float = 0.2, min_assemblies: Optional[int] = None,
             max_contigs: int = 25, manual: Optional[str] = None,
-            device=None) -> None:
-    """The distance contraction runs on ``device`` (CUDA unless the caller
-    asks for the CPU); everything else is host code."""
+            device=None, precomputed_distances=None,
+            collect_handoff: bool = False
+            ) -> Optional[Dict[Path, Tuple[UnitigGraph, List[Sequence]]]]:
+    """The distances run on ``device`` (CUDA unless the caller asks for the
+    CPU); everything else is host code. ``precomputed_distances``, an
+    optional {(id_a, id_b): distance} dict, replaces the distance
+    computation. With ``collect_handoff`` returns {qc-pass cluster dir:
+    (graph, sequences)} for in-process trim(preloaded=...); else None."""
     autocycler_dir = Path(autocycler_dir)
     gfa = autocycler_dir / "input_assemblies.gfa"
     clustering_dir = autocycler_dir / "clustering"
@@ -757,7 +775,7 @@ def cluster(autocycler_dir, cutoff: float = 0.2, min_assemblies: Optional[int] =
                     "clusters the sequences based on their similarity. Ideally, each "
                     "cluster will then contain sequences which can be combined into a "
                     "consensus.")
-    with substage("cluster load"):
+    with stage_timer("cluster/load"):
         gfa_lines = load_file_lines(gfa)
         graph, sequences = UnitigGraph.from_gfa_lines(gfa_lines)
     min_asm = set_min_assemblies(min_assemblies, sequences)
@@ -775,15 +793,18 @@ def cluster(autocycler_dir, cutoff: float = 0.2, min_assemblies: Optional[int] =
     log.section_header("Pairwise distances")
     log.explanation("Every pairwise distance between contigs is calculated based on the "
                     "similarity of their paths through the graph.")
-    with substage("cluster distances"):
-        asym = compute_distances(graph, sequences, dev)
+    with stage_timer("cluster/distances"):
+        if precomputed_distances is not None:
+            asym = precomputed_distances
+        else:
+            asym, _ = compute_distances(graph, sequences, dev)
         save_distance_matrix(asym, sequences,
                              clustering_dir / "pairwise_distances.phylip")
 
     log.section_header("Clustering sequences")
     log.explanation("Contigs are organised into a tree using UPGMA. Then clusters are "
                     "defined from the tree using the distance cutoff.")
-    with substage("cluster tree"):
+    with stage_timer("cluster/tree"):
         sym = make_symmetrical_distances(asym, sequences)
         tree = upgma(sym, sequences)
         normalise_tree(tree)
@@ -791,8 +812,9 @@ def cluster(autocycler_dir, cutoff: float = 0.2, min_assemblies: Optional[int] =
 
         qc_results = generate_clusters(tree, sequences, asym, cutoff, min_asm,
                                        manual_clusters)
-    with substage("cluster outputs"):
-        save_clusters(sequences, qc_results, clustering_dir, graph)
+    with stage_timer("cluster/outputs"):
+        handoff = save_clusters(sequences, qc_results, clustering_dir, graph,
+                                collect_handoff=collect_handoff)
         save_data_to_tsv(sequences, qc_results, clustering_dir / "clustering.tsv")
         clustering_metrics(sequences, qc_results).save_to_yaml(
             clustering_dir / "clustering.yaml")
@@ -803,3 +825,4 @@ def cluster(autocycler_dir, cutoff: float = 0.2, min_assemblies: Optional[int] =
     log.message(f"Clustering tree (Newick):   {clustering_dir / 'clustering.newick'}")
     log.message(f"Clustering tree (metadata): {clustering_dir / 'clustering.tsv'}")
     log.message()
+    return handoff if collect_handoff else None

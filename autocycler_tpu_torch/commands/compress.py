@@ -24,7 +24,7 @@ from ..ops.graph_build import build_unitig_graph
 from ..utils import (Spinner, check_threads, find_all_assemblies,
                      format_duration, load_fasta, log, quit_with_error,
                      reverse_complement_bytes)
-from ..utils.timing import substage
+from ..utils.timing import stage_timer, substage
 
 MAX_INPUT_SEQUENCES = 32767  # position packing limit (reference compress.rs:112-114)
 
@@ -59,20 +59,22 @@ def compress(assemblies_dir, autocycler_dir, k_size: int = 51,
                     "generate a consensus assembly (with autocycler resolve).")
     os.makedirs(autocycler_dir, exist_ok=True)
     metrics = InputAssemblyMetrics()
-    sequences, assembly_count = load_sequences(assemblies_dir, k_size, metrics,
-                                               max_contigs, dev)
+    with stage_timer("compress/load_and_repair"):
+        sequences, assembly_count = load_sequences(assemblies_dir, k_size,
+                                                   metrics, max_contigs, dev)
     log.section_header("Building compacted unitig graph")
     log.explanation("K-mers are grouped with a sort-based device kernel, unitig chains "
                     "are assembled, and all non-branching paths are collapsed to form a "
                     "compacted De Bruijn graph, a.k.a. a unitig graph.")
-    with Spinner("adding k-mers to graph..."):
+    with stage_timer("compress/build_graph"), \
+            Spinner("adding k-mers to graph..."):
         graph = build_unitig_graph(sequences, k_size, device=dev)
     graph.print_basic_graph_info()
 
     log.section_header("Simplifying unitig graph")
     log.explanation("The graph structure is now simplified by moving sequence into repeat "
                     "unitigs when possible.")
-    with Spinner("simplifying graph..."), substage("simplify"):
+    with stage_timer("compress/simplify"), Spinner("simplifying graph..."):
         simplify_structure(graph, sequences)
     graph.print_basic_graph_info()
 

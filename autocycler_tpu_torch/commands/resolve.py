@@ -27,7 +27,7 @@ from ..models.simplify import merge_linear_paths
 from ..ops.align import global_alignment_distance_batch
 from ..utils import (load_file_lines, log, quit_with_error, reverse_signed_path,
                      sign_at_end, sign_at_end_vec)
-from ..utils.timing import substage
+from ..utils.timing import stage_timer
 
 # medoid pairs of up to 2**6 unitigs share one device batch
 _SHORT_PAIR_CLASS = 6
@@ -301,9 +301,12 @@ def cull_ambiguity(bridges: List[Bridge], verbose: bool = False) -> int:
     return cull_count
 
 
-def resolve(cluster_dir, verbose: bool = False, device=None) -> None:
+def resolve(cluster_dir, verbose: bool = False, device=None,
+            preloaded=None) -> None:
     """The medoid distance DPs run on ``device`` (CUDA unless the caller
-    asks for the CPU)."""
+    asks for the CPU). ``preloaded`` is an optional (graph, sequences) pair
+    as ``trim`` returns it, used in place of parsing 2_trimmed.gfa; the file
+    stays the record, and is read when culling needs the pristine graph."""
     dev = resolve_device(device)
     cluster_dir = Path(cluster_dir)
     trimmed_gfa = cluster_dir / "2_trimmed.gfa"
@@ -314,21 +317,26 @@ def resolve(cluster_dir, verbose: bool = False, device=None) -> None:
 
     log.section_header("Starting autocycler resolve")
     log.explanation("This command resolves repeats in the unitig graph.")
-    with substage("resolve/load"):
-        gfa_lines = load_file_lines(trimmed_gfa)
-        graph, sequences = UnitigGraph.from_gfa_lines(gfa_lines)
+    with stage_timer("resolve/load"):
+        if preloaded is not None:
+            graph, sequences = preloaded
+            gfa_lines = None
+            graph.check_links()     # as parsing the file checks them
+        else:
+            gfa_lines = load_file_lines(trimmed_gfa)
+            graph, sequences = UnitigGraph.from_gfa_lines(gfa_lines)
     graph.print_basic_graph_info()
 
     log.section_header("Finding anchor unitigs")
     log.explanation("Anchor unitigs are those that occur once and only once in each "
                     "sequence. They will definitely be present in the final sequence and "
                     "will serve as the connection points for bridges.")
-    with substage("resolve/anchors"):
+    with stage_timer("resolve/anchors"):
         anchors = find_anchor_unitigs(graph, sequences)
 
     log.section_header("Building bridges")
     log.explanation("Bridges connect one anchor unitig to the next.")
-    with substage("resolve/bridges"):
+    with stage_timer("resolve/bridges"):
         bridges = create_bridges(graph, sequences, anchors, verbose, dev)
         bridge_count = len(bridges)
         bridge_depth = float(len(sequences))
@@ -339,7 +347,7 @@ def resolve(cluster_dir, verbose: bool = False, device=None) -> None:
     log.explanation("All unique bridges (those that do not conflict with other bridges) "
                     "are now applied to the graph, with linear paths merged to create "
                     "consentigs.")
-    with substage("resolve/apply"):
+    with stage_timer("resolve/apply"):
         apply_bridges(graph, bridges, bridge_depth)
         graph.save_gfa(cluster_dir / "3_bridged.gfa", [])
         merge_after_bridging(graph)
@@ -347,6 +355,10 @@ def resolve(cluster_dir, verbose: bool = False, device=None) -> None:
 
         cull_count = cull_ambiguity(bridges, verbose)
         if cull_count > 0:
+            # the bridges were applied to the graph in hand: start again
+            # from the file's
+            if gfa_lines is None:
+                gfa_lines = load_file_lines(trimmed_gfa)
             graph, _ = UnitigGraph.from_gfa_lines(gfa_lines)
             for num in anchors:
                 graph.index[num].unitig_type = UnitigType.ANCHOR

@@ -31,7 +31,7 @@ from ..ops.align import (GAP, AlignmentPiece, Weights, find_midpoint,
                          overlap_may_be_positive, overlap_tracebacks_batch)
 from ..utils import (check_threads, log, mad as mad_fn, median,
                      quit_with_error, reverse_signed_path)
-from ..utils.timing import substage
+from ..utils.timing import stage_timer
 
 TrimResult = Optional[Tuple[List[int], int]]
 # (seq_id, kind) -> the decoded alignment pieces, [] where there is none;
@@ -53,10 +53,15 @@ def overlap_screen(jobs, min_identity: float, max_unitigs: int,
 
 
 def trim(cluster_dir, min_identity: float = 0.75, max_unitigs: int = 5000,
-         mad: float = 5.0, threads: int = 1, device=None) -> None:
+         mad: float = 5.0, threads: int = 1, device=None, preloaded=None
+         ) -> Tuple[UnitigGraph, List[Sequence]]:
     """``threads`` is validated as in the reference and changes no output;
     the overlap DPs run on ``device`` (CUDA unless the caller asks for the
-    CPU)."""
+    CPU). ``preloaded`` is an optional (graph, sequences) pair handed over
+    in memory by ``cluster(collect_handoff=True)``, used in place of parsing
+    1_untrimmed.gfa. Returns the trimmed (graph, sequences), which an
+    in-process caller can hand to ``resolve(preloaded=...)``; 2_trimmed.gfa
+    is written all the same and stays the record."""
     dev = resolve_device(device)
     cluster_dir = Path(cluster_dir)
     untrimmed_gfa = cluster_dir / "1_untrimmed.gfa"
@@ -77,8 +82,9 @@ def trim(cluster_dir, min_identity: float = 0.75, max_unitigs: int = 5000,
                     "cluster) and trims any overlaps. It looks for both start-end overlaps "
                     "(can occur with circular sequences) and hairpin overlaps (can occur "
                     "with linear sequences).")
-    with substage("trim/load"):
-        graph, sequences = UnitigGraph.from_gfa_file(untrimmed_gfa)
+    with stage_timer("trim/load"):
+        graph, sequences = preloaded if preloaded is not None else \
+            UnitigGraph.from_gfa_file(untrimmed_gfa)
         graph.print_basic_graph_info()
         # dense number -> length array: scalar indexing works like a dict
         max_num = max((u.number for u in graph.unitigs), default=0)
@@ -89,7 +95,7 @@ def trim(cluster_dir, min_identity: float = 0.75, max_unitigs: int = 5000,
         # until choose_trim_type applies the results)
         all_paths = graph.get_unitig_paths_for_sequences(
             [s.id for s in sequences]) if max_unitigs else {}
-    with substage("trim/overlaps"):
+    with stage_timer("trim/overlaps"):
         paths = {seq_id: [n if s else -n for n, s in path]
                  for seq_id, path in all_paths.items()}
         jobs = {}
@@ -104,7 +110,7 @@ def trim(cluster_dir, min_identity: float = 0.75, max_unitigs: int = 5000,
         hairpin = trim_hairpin_overlap(sequences, weights, max_unitigs, paths,
                                        alignments, min_identity, dev)
         sequences = choose_trim_type(start_end, hairpin, graph, sequences)
-    with substage("trim/outputs"):
+    with stage_timer("trim/outputs"):
         sequences = exclude_outliers_in_length(graph, sequences, mad)
         clean_up_graph(graph, sequences)
         graph.save_gfa(trimmed_gfa, sequences)
@@ -113,6 +119,7 @@ def trim(cluster_dir, min_identity: float = 0.75, max_unitigs: int = 5000,
     log.section_header("Finished!")
     log.message(f"Unitig graph of trimmed sequences: {trimmed_gfa}")
     log.message()
+    return graph, sequences
 
 
 def trim_start_end_overlap(sequences: List[Sequence], weights: Weights,

@@ -9,8 +9,9 @@ Every hand-written kernel's wrapper launches it through :func:`launch` (or
 launch and puts CUDA events around it, so a run can show
 that its main path went through the kernels and how long they took.
 
-The alignment DPs of trim and resolve are torch ops on the device, not
-hand-written kernels. Each of their dispatches goes through
+The alignment DPs of trim and resolve and cluster's sketch intersection
+grid are torch ops on the device, not hand-written kernels. Each of their
+dispatches goes through
 :func:`dp_dispatch`, which records its shape (rows, jobs or pairs, cells)
 on every device and its CUDA-event time on the card, under its own name,
 apart from the kernels' counters.
@@ -33,7 +34,8 @@ _events: Dict[str, List[Tuple[torch.cuda.Event, torch.cuda.Event]]] = {
 # torch-op DP name -> one record per dispatch since the last reset_counts():
 # its shape as the caller gave it, and on the card its CUDA events
 dp_dispatches: Dict[str, List[dict]] = {"trim_overlap_dp": [],
-                                        "resolve_medoid_dp": []}
+                                        "resolve_medoid_dp": [],
+                                        "cluster_sketch_grid": []}
 
 
 def resolve_device(device=None) -> torch.device:

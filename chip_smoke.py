@@ -32,6 +32,17 @@ Phases (any failure exits non-zero, and the result lines are not printed):
              through compress, cluster, dotplot, trim, resolve and combine
              on the card and on the CPU (the kernels' plain versions),
              which must write the same bytes.
+   handoff — the headline again in one process on the card, stages
+             handing their graphs over in memory (cluster(collect_handoff=
+             True), trim and resolve with preloaded=...), the collector off:
+             every file must equal the CLI run's; each stage's wall, stage
+             and substage seconds and the counters are printed.
+   sketch  — the plasmid-rich configuration (24 assemblies of a 5.3 Mbp
+             chromosome and ten plasmids of 2.5-250 kb, 264 contigs, seed
+             13): compress, then cluster with the default knob (sketch
+             distances), with verify and with exact distances, 11 QC-pass
+             clusters and one partition in all three; then the sketch
+             intersection grid on the card against its host version, exact.
 4. grid    — the match-grid throughput entry (benchmark_gcells) at 524,288^2
              and k=32 for the word kernel and both product kernels; at equal
              tiles the three grids must equal one another and the plain
@@ -55,6 +66,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -85,6 +97,14 @@ HEADLINE = dict(n_assemblies=24, chromosome_len=6_000_000,
 # lengths, once a job passes the host screen.
 OVERLAPS = ((2_000, 20_000), (500, 5_000))
 OVERLAP_SEED = 11
+# the plasmid-rich configuration: a chromosome and ten plasmids, 24 times,
+# 264 contigs, so that cluster's default (auto) sketches. No source gives
+# these lengths: they span the plasmid sizes that multi-plasmid
+# Enterobacterales isolates carry, and nothing is cut.
+PLASMID_RICH = dict(n_assemblies=24, chromosome_len=5_300_000,
+                    plasmid_lens=(2_500, 4_000, 6_000, 9_000, 15_000, 40_000,
+                                  70_000, 110_000, 180_000, 250_000),
+                    snps_per_mbp=100, seed=13)
 KERNEL_SOURCES = {
     "sortnet_pack_rank": {
         "route": "cuda",
@@ -541,9 +561,9 @@ def phase_main(work: Path):
     if rc != 0:
         raise RuntimeError(f"[main] compress exited {rc}:\n"
                            f"{stderr.getvalue()[-3000:]}")
-    stages = dict(timing.seconds)
-    log(f"[main] compress wall {wall:.3f} s, substages (s): "
-        + json.dumps(stages))
+    log(f"[main] compress wall {wall:.3f} s, stages (s): "
+        f"{json.dumps(timing.stage_seconds())}, substages (s): "
+        f"{json.dumps(timing.substage_snapshot())}")
     log(f"[main] kernel launches {launches}, kernel time (ms, CUDA events) "
         + json.dumps(kernel_ms))
     if launches["sortnet_pack_rank"] == 0:
@@ -663,7 +683,7 @@ def overlap_configuration(work: Path, replicons) -> None:
                                  f"{sorted(set(lengths))}")
         dp = run["dp"]["trim_overlap_dp"]
         log(f"[main] overlap trim {c.name}: {len(lengths)} contigs trimmed to "
-            f"{lengths[0]} bp; trim/overlaps {run['substages']['trim/overlaps']}"
+            f"{lengths[0]} bp; trim/overlaps {run['stages']['trim/overlaps']}"
             f" s; trim_overlap_dp dispatches {json.dumps(dp['each'])}")
     if not sum(r["dp"]["trim_overlap_dp"]["dispatches"] for r in trims):
         raise AssertionError("[main] overlap trim never dispatched its "
@@ -677,10 +697,10 @@ def overlap_configuration(work: Path, replicons) -> None:
         raise AssertionError("[profile] the profiled trim differs")
 
 
-def run_cli(label: str, argv) -> dict:
-    """One CLI call with every launch count and DP record set to 0 just
-    before it and read just after. Returns its launches, DP dispatches
-    and substages; its wall seconds go to the log."""
+def run_cli(label: str, argv, phase: str = "main") -> dict:
+    """One CLI call with every launch count, DP record and timer set to 0
+    just before it and read just after. Returns its launches, DP dispatches
+    and stage seconds; its wall seconds and substages go to the log."""
     from autocycler_tpu_torch import cli, device
     from autocycler_tpu_torch.utils import timing
 
@@ -697,15 +717,17 @@ def run_cli(label: str, argv) -> dict:
     kernel_ms = {n: device.kernel_ms(n) for n, c in launches.items() if c}
     dps = {n: device.dp_summary(n) for n in device.dp_dispatches}
     if rc != 0:
-        raise RuntimeError(f"[main] {label} exited {rc}:\n"
+        raise RuntimeError(f"[{phase}] {label} exited {rc}:\n"
                            f"{stderr.getvalue()[-3000:]}")
     dp_text = "".join(
         f", {n} {json.dumps({k: v for k, v in d.items() if k != 'each'})}"
         for n, d in dps.items() if d["dispatches"])
-    log(f"[main] {label}: wall {wall} s, launches {launches}, kernel time "
-        f"(ms, CUDA events) {json.dumps(kernel_ms)}, substages (s) "
-        f"{json.dumps(timing.seconds)}{dp_text}")
-    return {"launches": launches, "dp": dps, "substages": dict(timing.seconds)}
+    stages = timing.stage_seconds()
+    log(f"[{phase}] {label}: wall {wall} s, launches {launches}, kernel time "
+        f"(ms, CUDA events) {json.dumps(kernel_ms)}, stages (s) "
+        f"{json.dumps(stages)}, substages (s) "
+        f"{json.dumps(timing.substage_snapshot())}{dp_text}")
+    return {"launches": launches, "dp": dps, "stages": stages}
 
 
 def _cluster_median(cluster_dir: Path) -> int:
@@ -835,6 +857,290 @@ def profile_compress(asm: Path, out: Path, expected: Path) -> None:
     if not _same_files(out, expected):
         raise AssertionError("[profile] profiled compress differs from the "
                              "counted one")
+
+
+def _pipeline_step(record: dict, name: str, fn, *args, **kwargs):
+    """One in-process stage call: its wall seconds (ending in a
+    synchronise), the stage and substage seconds it added, summed into
+    ``record[name]``."""
+    from autocycler_tpu_torch.utils import timing
+
+    stages = timing.stage_seconds()
+    substages = timing.substage_snapshot()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    step = record.setdefault(name, {"wall_s": 0.0, "stages": {},
+                                    "substages": {}})
+    step["wall_s"] += time.perf_counter() - t0
+    for key, secs in timing.stage_seconds().items():
+        if secs > stages.get(key, 0.0):
+            step["stages"][key] = step["stages"].get(key, 0.0) + \
+                secs - stages.get(key, 0.0)
+    for key, secs in timing.substage_deltas(substages).items():
+        step["substages"][key] = step["substages"].get(key, 0.0) + secs
+    return result
+
+
+def _in_process(label: str, flow) -> dict:
+    """Runs ``flow(steps)`` in one process with every count and timer set to
+    0 just before it and the collector off, logs each step and the counts,
+    and returns the steps with the pipeline's wall seconds under "wall_s".
+
+    The unitig graph is cyclic, so every stage leaves many cycles behind;
+    with the collector on, its scans in later stages walk all of them
+    (bench.py measured +12 s in trim and resolve on the JAX package). A
+    command-per-process run never pays that, so the collector is off here
+    while the stages run."""
+    import gc
+
+    from autocycler_tpu_torch import device
+    from autocycler_tpu_torch.utils import timing
+
+    steps = {}
+    device.reset_counts()
+    timing.reset()
+    gc.disable()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(io.StringIO()):
+            flow(steps)
+        wall = time.perf_counter() - t0
+    finally:
+        gc.enable()
+    gc.collect()
+    launches = dict(device.launches)
+    kernel_ms = {n: device.kernel_ms(n) for n, c in launches.items() if c}
+    dps = {n: {k: v for k, v in device.dp_summary(n).items() if k != "each"}
+           for n in device.dp_dispatches}
+    for name, step in steps.items():
+        log(f"[handoff] {label}, {name}: {json.dumps(step)}")
+    log(f"[handoff] {label}: pipeline wall {wall} s, launches {launches}, "
+        f"kernel time (ms, CUDA events) {json.dumps(kernel_ms)}, DP "
+        f"dispatches {json.dumps(dps)}")
+    steps["wall_s"] = wall
+    steps["launches"] = launches
+    return steps
+
+
+def phase_handoff(work: Path) -> None:
+    """The headline in one process on the card, as bench.py's headline runs
+    the JAX package: compress (k=51) -> cluster(collect_handoff=True) ->
+    trim(preloaded=...) -> resolve(preloaded=...) for each QC-pass cluster
+    -> combine, on [main]'s inputs into a fresh directory. Then, on a copy
+    of its compressed graph, the same stages in one process reading and
+    writing the files between them as the CLI does, so that the hand-over's
+    gain stands apart from that of running in one process with the
+    collector off. Every file either writes must equal the CLI run's in
+    [main]."""
+    from autocycler_tpu_torch.commands.cluster import cluster
+    from autocycler_tpu_torch.commands.combine import combine
+    from autocycler_tpu_torch.commands.compress import compress
+    from autocycler_tpu_torch.commands.resolve import resolve
+    from autocycler_tpu_torch.commands.trim import trim
+
+    asm, out = work / "headline" / "assemblies", work / "handoff"
+    files = work / "handoff_files"
+
+    def handed_over(steps):
+        _pipeline_step(steps, "compress", compress, asm, out, 51)
+        handoff = _pipeline_step(steps, "cluster", cluster, out,
+                                 collect_handoff=True)
+        clusters = sorted(handoff)
+        for c in clusters:
+            trimmed = _pipeline_step(steps, "trim", trim, c,
+                                     preloaded=handoff.pop(c))
+            _pipeline_step(steps, "resolve", resolve, c, preloaded=trimmed)
+            del trimmed
+        _pipeline_step(steps, "combine", combine, out,
+                       [c / "5_final.gfa" for c in clusters])
+
+    def from_files(steps):
+        _pipeline_step(steps, "cluster", cluster, files)
+        clusters = sorted((files / "clustering" / "qc_pass").iterdir())
+        for c in clusters:
+            _pipeline_step(steps, "trim", trim, c)
+            _pipeline_step(steps, "resolve", resolve, c)
+        _pipeline_step(steps, "combine", combine, files,
+                       [c / "5_final.gfa" for c in clusters])
+
+    run = _in_process("hand-over", handed_over)
+    if run["launches"]["sortnet_pack_rank"] == 0:
+        raise AssertionError("[handoff] compress never launched the sort "
+                             "network")
+    if not _same_files(work / "out", out):
+        raise AssertionError("[handoff] the in-process hand-over's files "
+                             "differ from the CLI run's in [main]")
+    files.mkdir()
+    for name in ("input_assemblies.gfa", "input_assemblies.yaml"):
+        shutil.copyfile(out / name, files / name)
+    _in_process("files", from_files)
+    if not _same_files(work / "out", files):
+        raise AssertionError("[handoff] the in-process file flow's files "
+                             "differ from the CLI run's in [main]")
+    log("[handoff] the hand-over and the in-process file flow write every "
+        "file the CLI run in [main] does, byte for byte")
+
+
+def make_plasmid_rich(root: Path) -> Path:
+    """PLASMID_RICH's assemblies: every replicon rotated in each assembly,
+    the plasmids reverse-complemented in alternate assemblies (as
+    make_assemblies_fast does), SNPs in every copy."""
+    from synthetic import mutate_fast, random_genome_fast, revcomp, rotate
+
+    cfg = PLASMID_RICH
+    rng = np.random.default_rng(cfg["seed"])
+    lengths = (cfg["chromosome_len"],) + cfg["plasmid_lens"]
+    replicons = [random_genome_fast(rng, n) for n in lengths]
+    asm = root / "assemblies"
+    asm.mkdir(parents=True)
+    for i in range(cfg["n_assemblies"]):
+        records = []
+        for j, replicon in enumerate(replicons):
+            seq = rotate(replicon, int(rng.integers(0, len(replicon))))
+            if j and i % 2 == 1:
+                seq = revcomp(seq)
+            snps = max(1, round(len(seq) * cfg["snps_per_mbp"] / 1e6))
+            seq = mutate_fast(rng, seq, snps)
+            name = "chromosome" if j == 0 else f"plasmid_{j}"
+            records.append(f">{name}_{i + 1}\n{seq}\n")
+        (asm / f"assembly_{i + 1}.fasta").write_text("".join(records))
+    return asm
+
+
+def _tsv_partition(clustering: Path):
+    """The (passing_clusters, all_clusters) column pair of every row."""
+    lines = (clustering / "clustering.tsv").read_text().splitlines()
+    header = lines[0].split("\t")
+    cols = header.index("passing_clusters"), header.index("all_clusters")
+    return [tuple(line.split("\t")[c] for c in cols) for line in lines[1:]]
+
+
+@contextlib.contextmanager
+def _recorded(module, name: str, keep):
+    """Inside the block, each call of ``module.<name>`` appends
+    ``keep(args, result)`` and the call's wall seconds to the yielded
+    list."""
+    calls = []
+    real = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        t0 = time.perf_counter()
+        result = real(*args, **kwargs)
+        calls.append((keep(args, result), time.perf_counter() - t0))
+        return result
+
+    setattr(module, name, wrapper)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, real)
+
+
+def phase_sketch(work: Path) -> None:
+    """The plasmid-rich configuration (264 contigs): compress, then cluster
+    through the CLI with the default knob (auto, so sketch distances), with
+    verify, and with exact distances: 11 QC-pass clusters each time and the
+    same partition. The sketch runs' host sketching seconds, their grid's
+    CUDA-event ms and verify's record are read from inside the CLI calls;
+    each grid must equal sketch_intersections_host on its sketches."""
+    import os
+
+    from autocycler_tpu_torch.commands import cluster as cluster_mod
+    from autocycler_tpu_torch.ops import sketch
+
+    t0 = time.perf_counter()
+    asm = make_plasmid_rich(work / "plasmid_rich")
+    total = sum(len(line) for f in asm.iterdir()
+                for line in f.read_text().splitlines()[1::2])
+    log(f"[sketch] plasmid-rich inputs generated in "
+        f"{time.perf_counter() - t0:.3f} s: {total} bp, {PLASMID_RICH}")
+    out = work / "plasmid_rich_out"
+    compressed = run_cli("plasmid-rich compress",
+                         ["compress", "-i", asm, "-a", out, "--kmer", "51"],
+                         "sketch")
+    if compressed["launches"]["sortnet_pack_rank"] == 0:
+        raise AssertionError("[sketch] compress never launched the sort "
+                             "network")
+    partitions, runs = {}, {}
+    saved = os.environ.pop("AUTOCYCLER_SKETCH_DISTANCE", None)
+    try:
+        with _recorded(sketch, "sketch_matrix", lambda a, r: None) as hashing, \
+                _recorded(sketch, "sketch_from_codes",
+                          lambda a, r: None) as contig_hashes, \
+                _recorded(sketch, "sketch_intersections",
+                          lambda a, r: (a[0], r)) as grids, \
+                _recorded(cluster_mod, "compute_distances",
+                          lambda a, r: r[1]) as records:
+            for mode in ("auto", "verify", "exact"):
+                if mode != "auto":
+                    os.environ["AUTOCYCLER_SKETCH_DISTANCE"] = mode
+                runs[mode] = run_cli(f"plasmid-rich cluster, {mode}",
+                                     ["cluster", "-a", out], "sketch")
+                partitions[mode] = _tsv_partition(out / "clustering")
+                passing = len(list((out / "clustering" / "qc_pass").iterdir()))
+                grid = runs[mode]["dp"]["cluster_sketch_grid"]
+                if passing != 11 or grid["dispatches"] != (mode != "exact"):
+                    raise AssertionError(
+                        f"[sketch] cluster {mode}: {passing} QC-pass clusters "
+                        f"(expected 11), {grid['dispatches']} sketch grid "
+                        "dispatches")
+    finally:
+        os.environ.pop("AUTOCYCLER_SKETCH_DISTANCE", None)
+        if saved is not None:
+            os.environ["AUTOCYCLER_SKETCH_DISTANCE"] = saved
+    if len(partitions["auto"]) != 264 or \
+            not partitions["auto"] == partitions["verify"] == partitions["exact"]:
+        raise AssertionError("[sketch] the sketch clustering's partition "
+                             "differs from the exact distances'")
+    log("[sketch] auto (sketch), verify and exact: 11 QC-pass clusters, "
+        "the same partition of 264 contigs")
+
+    (S, inter), _ = grids[0]
+    t0 = time.perf_counter()
+    want = sketch.sketch_intersections_host(S)
+    plain_s = time.perf_counter() - t0
+    err = max(int(np.abs(got - want).max()) for (_, got), _ in grids)
+    if err != 0 or not all(np.array_equal(a, S) for (a, _), _ in grids):
+        raise AssertionError("[sketch] the sketch grid on the card differs "
+                             f"from sketch_intersections_host ({err} at most)")
+    n, s = S.shape
+    lookups = runs["auto"]["dp"]["cluster_sketch_grid"]["lookups"]
+    # the grid's bound: its int64 rows read once and the counts written
+    # once, against one comparison a lookup (a merge of two sorted rows
+    # needs no fewer) at the CUDA cores' issue rate
+    bound = {"bytes": 8 * (n * s + n * n) / HBM_BYTES_PER_S * 1e3,
+             "operations": lookups / INT_OPS * 1e3}
+    # what each path's cost follows: the host sketching the bases, the grid
+    # the contigs, the exact distances the unitigs (set by the SNP rate)
+    unitigs = next(int(line.split(":")[1]) for line in
+                   (out / "input_assemblies.yaml").read_text().splitlines()
+                   if line.startswith("compressed_unitig_count:"))
+    log("[sketch] " + json.dumps({
+        "contigs": n, "bp": total, "unitigs": unitigs, "s": s,
+        "real_values": int((S != sketch.SENTINEL).sum()),
+        "cluster_distances_s": {m: r["stages"]["cluster/distances"]
+                                for m, r in runs.items()},
+        "sketch_matrix_host_s": {m: secs for m, (_, secs)
+                                 in zip(("auto", "verify"), hashing)},
+        "sketch_matrix_host_s_per_mbp": {
+            m: secs / (total / 1e6)
+            for m, (_, secs) in zip(("auto", "verify"), hashing)},
+        # of which the hashing (k-mers, window minima, bottom s) proper;
+        # the rest rebuilds each contig from its graph path and encodes it
+        "sketch_from_codes_host_s": {
+            m: sum(secs for _, secs in contig_hashes[i * n:(i + 1) * n])
+            for i, m in enumerate(("auto", "verify"))},
+        "grid": {"lookups": lookups,
+                 "ms": {m: runs[m]["dp"]["cluster_sketch_grid"]["ms"]
+                        for m in ("auto", "verify")},
+                 "ms_median_of_3_with_copies": _time_ms(
+                     lambda: sketch.sketch_intersections(S, "cuda")),
+                 "bound_ms": max(bound.values()),
+                 "bound_by": max(bound, key=bound.get),
+                 "plain_host_s": plain_s, "max_abs_err": err},
+        "verify_record": records[1][0]}))
 
 
 def phase_grid():
@@ -1181,6 +1487,8 @@ def main() -> int:
     phase_kernels()
     with tempfile.TemporaryDirectory() as td:
         paths, captured, plasmid_pair, dotplot_groupings = phase_main(Path(td))
+        phase_handoff(Path(td))
+        phase_sketch(Path(td))
     paths["grid"], grid_words = phase_grid()
     rows = phase_timing(paths, captured, plasmid_pair, dotplot_groupings,
                         grid_words)

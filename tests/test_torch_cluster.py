@@ -158,14 +158,29 @@ def test_missing_inputs_match_jax(tmp_path):
     {"AUTOCYCLER_SKETCH_MIN_CONTIGS": "4"},          # auto resolves to sketch
 ])
 def test_sketch_mode_is_refused_not_replaced(tmp_path, monkeypatch, env):
-    _, port_dir = _compressed(tmp_path, seed=5)
-    monkeypatch.delenv("AUTOCYCLER_SKETCH_DISTANCE", raising=False)
+    """The sketch modes run the sketch distances, not the exact ones in
+    their place: the files equal the JAX package's under the same knobs,
+    and the PHYLIP matrix differs from the exact mode's except in verify,
+    which clusters from the exact distances. The port once refused these
+    modes; the refusal was removed when sketch distances were ported, and
+    the test keeps its name."""
+    from autocycler_tpu_torch import device
+    jax_dir, port_dir = _compressed(tmp_path, seed=5)
+    shutil.copytree(port_dir, tmp_path / "exact")
+    monkeypatch.setenv("AUTOCYCLER_SKETCH_DISTANCE", "exact")
+    _quiet(cluster, tmp_path / "exact", device="cpu")
+    monkeypatch.delenv("AUTOCYCLER_SKETCH_DISTANCE")
     for name, value in env.items():
         monkeypatch.setenv(name, value)
-    with pytest.raises(AutocyclerError,
-                       match="sketch distances are not ported yet"):
-        _quiet(cluster, port_dir, device="cpu")
-    assert not (port_dir / "clustering/pairwise_distances.phylip").exists()
+    _quiet(jax_cluster, jax_dir)
+    device.reset_counts()
+    _quiet(cluster, port_dir, device="cpu")
+    _same_clustering(jax_dir, port_dir)
+    assert device.dp_summary("cluster_sketch_grid")["dispatches"] == 1
+    phylip = "clustering/pairwise_distances.phylip"
+    same = (port_dir / phylip).read_bytes() == \
+        (tmp_path / "exact" / phylip).read_bytes()
+    assert same == (env.get("AUTOCYCLER_SKETCH_DISTANCE") == "verify")
 
 
 @pytest.mark.parametrize("raw", ["off", "exact", ""])

@@ -44,6 +44,18 @@ def test_port_runs_compress_without_jax(tmp_path):
         "    trim(c, device='cpu')\n"
         "    resolve(c, device='cpu')\n"
         "combine(out, [c / '5_final.gfa' for c in clusters])\n"
+        "import os\n"
+        "from autocycler_tpu_torch import device\n"
+        "os.environ['AUTOCYCLER_SKETCH_DISTANCE'] = 'on'\n"
+        f"sk = Path({str(tmp_path / 'sketch')!r})\n"
+        f"compress({str(asm)!r}, sk, device='cpu')\n"
+        "handoff = cluster(sk, device='cpu', collect_handoff=True)\n"
+        "for c in sorted(handoff):\n"
+        "    trimmed = trim(c, device='cpu', preloaded=handoff.pop(c))\n"
+        "    resolve(c, device='cpu', preloaded=trimmed)\n"
+        "combine(sk, sorted(sk.glob('clustering/qc_pass/*/5_final.gfa')))\n"
+        "print('SKETCH', device.dp_summary('cluster_sketch_grid')"
+        "['dispatches'])\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'autocycler_tpu' or m.startswith('autocycler_tpu.')]\n"
         "print('LOADED', bad)\n")
@@ -54,6 +66,9 @@ def test_port_runs_compress_without_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
     assert "LOADED []" in res.stdout
+    assert "SKETCH 1" in res.stdout
+    assert (tmp_path / "sketch/consensus_assembly.fasta").read_text().count(
+        "circular=true") == 2
     assert (tmp_path / "recon" / "assembly_1.fasta").read_bytes() == \
         (asm / "assembly_1.fasta").read_bytes()
     assert (tmp_path / "out/clustering/clustering.tsv").is_file()
