@@ -21,6 +21,7 @@ from ..models.sequence import padded_strand
 from ..models.simplify import simplify_structure
 from ..ops.end_repair import sequence_end_repair
 from ..ops.graph_build import build_unitig_graph
+from ..stream import prepare_stream_root
 from ..utils import (Spinner, check_threads, find_all_assemblies,
                      format_duration, load_fasta, log, quit_with_error,
                      reverse_complement_bytes)
@@ -45,9 +46,11 @@ def check_settings(assemblies_dir, autocycler_dir, k_size: int) -> None:
 
 def compress(assemblies_dir, autocycler_dir, k_size: int = 51,
              max_contigs: int = 25, threads: int = 1, device=None) -> None:
-    """``threads`` is validated as in the reference and changes no output;
-    the device work runs on ``device`` (CUDA unless the caller asks for the
-    CPU)."""
+    """The device work runs on ``device`` (CUDA unless the caller asks for
+    the CPU). ``threads`` sizes the streamed k-mer grouping's plan (its bin
+    count) and how many bin reads run ahead of its sorts, as in the JAX
+    package; no output byte depends on it. The streamed grouping spills
+    under ``<autocycler_dir>/.stream``."""
     start_time = time.perf_counter()
     check_settings(assemblies_dir, autocycler_dir, k_size)
     check_threads(threads)
@@ -58,6 +61,9 @@ def compress(assemblies_dir, autocycler_dir, k_size: int = 51,
                     "be used to recover the assemblies (with autocycler decompress) or "
                     "generate a consensus assembly (with autocycler resolve).")
     os.makedirs(autocycler_dir, exist_ok=True)
+    # the streamed k-mer grouping spills under <autocycler_dir>/.stream;
+    # sweep what a killed run left behind before this run spills
+    prepare_stream_root(autocycler_dir)
     metrics = InputAssemblyMetrics()
     with stage_timer("compress/load_and_repair"):
         sequences, assembly_count = load_sequences(assemblies_dir, k_size,
@@ -68,7 +74,8 @@ def compress(assemblies_dir, autocycler_dir, k_size: int = 51,
                     "compacted De Bruijn graph, a.k.a. a unitig graph.")
     with stage_timer("compress/build_graph"), \
             Spinner("adding k-mers to graph..."):
-        graph = build_unitig_graph(sequences, k_size, device=dev)
+        graph = build_unitig_graph(sequences, k_size, device=dev,
+                                   threads=threads)
     graph.print_basic_graph_info()
 
     log.section_header("Simplifying unitig graph")

@@ -190,12 +190,13 @@ def unitig_graph_from_chains(index: KmerIndex, chains: Chains) -> UnitigGraph:
 
 
 def build_unitig_graph(sequences: List[Sequence], k: int,
-                       device=None) -> UnitigGraph:
+                       device=None, threads=None) -> UnitigGraph:
     """Sequences (padded, end-repaired) -> compacted unitig graph. The k-mer
     grouping, adjacency and chain following run on ``device`` (CUDA unless
-    the caller asks for the CPU)."""
+    the caller asks for the CPU); ``threads`` sizes the streamed grouping's
+    plan and its bin reads."""
     from ..utils import log
-    index = build_kmer_index(sequences, k, device=device)
+    index = build_kmer_index(sequences, k, device=device, threads=threads)
     log.message(f"Graph contains {index.num_kmers} k-mers")
     log.message()
     chains = build_chains(index)

@@ -1,6 +1,8 @@
 """Exact k-mer grouping and the k-mer index, on the device.
 
-The port of the JAX package's ops/kmers.py, in-memory path. Every k-window of
+The port of the JAX package's ops/kmers.py: the in-memory grouping here,
+and the dispatch to the streamed grouping (stream/) above a window count,
+as the JAX package dispatches. Every k-window of
 every padded sequence (both strands) is grouped by the partition-sort kernels
 (ops/sortnet.py, csrc/sortnet.cu): group ids are the windows' lexicographic
 ranks, so the reference's sorted k-mer iteration (kmer_graph.rs:168-173)
@@ -212,7 +214,8 @@ def adjacency(prefix_gid: torch.Tensor, suffix_gid: torch.Tensor, G: int):
         succ_by_gram[suffix_gid]
 
 
-def build_kmer_index(sequences, k: int, device=None) -> KmerIndex:
+def build_kmer_index(sequences, k: int, device=None,
+                     threads=None) -> KmerIndex:
     """Build the k-mer index from Sequence objects (padded, with bytes).
 
     Parity notes: every k-window of every padded sequence on both strands is
@@ -221,7 +224,17 @@ def build_kmer_index(sequences, k: int, device=None) -> KmerIndex:
     sequence are flagged (Kmer::first_position, kmer_graph.rs:57-60); right
     and left neighbour counts replace next_kmers/prev_kmers probing
     (kmer_graph.rs:136-166).
+
+    The grouping streams through disk-spill bins (stream/) where the JAX
+    package's does: ``AUTOCYCLER_STREAM_KMERS`` on, or auto from
+    ``AUTOCYCLER_STREAM_AUTO_WINDOWS`` windows. ``threads`` sizes its plan.
+    A spill it cannot trust degrades visibly to the in-memory grouping,
+    which gives the same arrays.
     """
+    from ..stream import (occ_byte_starts, resolve_stream_mode,
+                          stream_group_windows_stats)
+    from ..utils.resilience import SpillError, record_degrade
+
     dev = resolve_device(device)
     half_k = k // 2
     S = len(sequences)
@@ -252,6 +265,7 @@ def build_kmer_index(sequences, k: int, device=None) -> KmerIndex:
     if S > 1:
         occ_off[1:] = np.cumsum(2 * seq_len)[:-1]
     M = int(2 * seq_len.sum())
+    stream_on = bool(M) and k > 1 and resolve_stream_mode(M, k)
 
     # per-sequence cached both-strand encodings, in buf's (forward, reverse)
     # per-sequence layout
@@ -268,18 +282,51 @@ def build_kmer_index(sequences, k: int, device=None) -> KmerIndex:
     codes = np.concatenate(strand_codes) if strand_codes \
         else encode_bytes(buf)
 
-    with substage("k-mer grouping"):
-        codes_d = torch.from_numpy(np.ascontiguousarray(codes)).to(dev)
-        # byte start of every occurrence window: one run per strand
-        starts_d = run_starts(np.stack([fwd_off, rev_off], 1).reshape(-1),
-                              np.repeat(seq_len, 2), dev)
-        order_d, gid_sorted_d = rank_windows(codes_d, starts_d, k)
-        depth_d, first_occ_d = segment_stats(order_d, gid_sorted_d)
-        occ_kid = _to_host(scatter_gid(order_d, gid_sorted_d), np.int32)
-        order = _to_host(order_d)
-        del order_d, gid_sorted_d
-        depth = _to_host(depth_d)
-        first_occ = _to_host(first_occ_d)
+    def codes_to_device():
+        return torch.from_numpy(np.ascontiguousarray(codes)).to(dev)
+
+    # streamed path first when enabled: disk-spill bins bound the grouping's
+    # working set; a spill failure (a write error, a quarantined bin, a
+    # duplicate representative) degrades VISIBLY to the in-memory grouping.
+    # Each path's substage includes the codes' copy to the device.
+    stats = codes_d = None
+    if stream_on:
+        try:
+            with substage("stream-kmers"):
+                codes_d = codes_to_device()
+                stats = stream_group_windows_stats(
+                    codes_d, seq_len, fwd_off, rev_off, occ_off, k,
+                    threads=threads)
+        except (SpillError, OSError) as e:
+            record_degrade("stream-kmers", "stream", "in-memory",
+                           f"{type(e).__name__}: {e}")
+    if stats is not None:
+        gid, order, depth, first_occ = stats
+        occ_kid = gid.astype(np.int32)
+        del gid, stats
+        # the streamed path never builds the M-sized starts; the
+        # representatives' byte starts follow from the occurrence layout
+        rep_byte_d = occ_byte_starts(
+            torch.from_numpy(first_occ).to(dev),
+            *(torch.from_numpy(a).to(dev)
+              for a in (seq_len, fwd_off, rev_off, occ_off)))
+    else:
+        with substage("k-mer grouping"):
+            if codes_d is None:
+                codes_d = codes_to_device()
+            # byte start of every occurrence window: one run per strand
+            starts_d = run_starts(
+                np.stack([fwd_off, rev_off], 1).reshape(-1),
+                np.repeat(seq_len, 2), dev)
+            order_d, gid_sorted_d = rank_windows(codes_d, starts_d, k)
+            depth_d, first_occ_d = segment_stats(order_d, gid_sorted_d)
+            occ_kid = _to_host(scatter_gid(order_d, gid_sorted_d), np.int32)
+            order = _to_host(order_d)
+            del order_d, gid_sorted_d
+            depth = _to_host(depth_d)
+            first_occ = _to_host(first_occ_d)
+            rep_byte_d = starts_d[first_occ_d.long()]
+            del starts_d
     U = len(depth)
     # occurrences grouped by kid; stable grouping keeps occurrence order
     # inside each group ascending
@@ -310,8 +357,6 @@ def build_kmer_index(sequences, k: int, device=None) -> KmerIndex:
     # representative windows: the prefix gram starts at the representative
     # byte offset, the suffix gram one byte later.
     with substage("gram grouping"):
-        rep_byte_d = starts_d[first_occ_d.long()]
-        del starts_d
         gram_starts = torch.cat([rep_byte_d, rep_byte_d + 1])
         gorder, ggid_sorted = rank_windows(codes_d, gram_starts, k - 1)
         gram_gid = scatter_gid(gorder, ggid_sorted).long()

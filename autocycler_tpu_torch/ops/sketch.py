@@ -16,8 +16,11 @@ a sketch reduces every contig to a fixed-size vector:
    ``s`` smallest (bottom-s), which makes a sketch at s' < s the first s'
    entries of the sketch at s.
 
-The hashing runs on the host in numpy, as in the JAX package. The sketches
-stack into an ``(n_contigs, s)`` matrix of ascending rows padded with
+The hashing runs as torch ops on the device (CUDA unless the caller asks
+for the CPU): the uint64 arithmetic of the JAX package's numpy hashing runs
+in int64, whose adds and multiplies wrap alike, with each logical right
+shift masked, so every hash equals the JAX package's bit for bit. The
+sketches stack into an ``(n_contigs, s)`` matrix of ascending rows padded with
 :data:`SENTINEL`; the pairwise intersection counts are a batched
 ``torch.searchsorted`` of every row in every other on the device, and the
 one float expression that turns counts into distances runs in numpy, so the
@@ -47,9 +50,12 @@ MAX_K = 27      # 5**27 < 2**63: base-5 pack of a k-mer fits uint64 exactly
 # stays under this many bytes
 GRID_CHUNK_BYTES = 1 << 30
 
-_SPLITMIX_GAMMA = np.uint64(0x9E3779B97F4A7C15)
-_SPLITMIX_M1 = np.uint64(0xBF58476D1CE4E5B9)
-_SPLITMIX_M2 = np.uint64(0x94D049BB133111EB)
+# splitmix64's uint64 constants as the int64 values of the same bits: the
+# hashing runs in int64, whose adds and multiplies wrap as uint64's do
+_U64 = 1 << 64
+_SPLITMIX_GAMMA = 0x9E3779B97F4A7C15 - _U64
+_SPLITMIX_M1 = 0xBF58476D1CE4E5B9 - _U64
+_SPLITMIX_M2 = 0x94D049BB133111EB - _U64
 
 
 def sketch_params() -> Tuple[int, int, int]:
@@ -62,17 +68,24 @@ def sketch_params() -> Tuple[int, int, int]:
     return k, w, s
 
 
-def _splitmix64(x: np.ndarray) -> np.ndarray:
-    """Vectorised splitmix64 finaliser (uint64 wrap-around arithmetic)."""
+def _shr(z: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of the 64 bits of an int64 tensor: torch's ``>>``
+    is arithmetic, so the sign bits it brings in are masked off."""
+    return (z >> s) & ((1 << (64 - s)) - 1)
+
+
+def _splitmix64(x: torch.Tensor) -> torch.Tensor:
+    """The splitmix64 finaliser over int64 holding uint64 bits."""
     z = x + _SPLITMIX_GAMMA
-    z = (z ^ (z >> np.uint64(30))) * _SPLITMIX_M1
-    z = (z ^ (z >> np.uint64(27))) * _SPLITMIX_M2
-    return z ^ (z >> np.uint64(31))
+    z = (z ^ _shr(z, 30)) * _SPLITMIX_M1
+    z = (z ^ _shr(z, 27)) * _SPLITMIX_M2
+    return z ^ _shr(z, 31)
 
 
-def _pack_poly(codes: np.ndarray, k: int, reverse: bool = False) -> np.ndarray:
-    """Base-5 pack of every k-mer of one code strand, in O(log k) array
-    passes.
+def _pack_poly(codes: torch.Tensor, k: int,
+               reverse: bool = False) -> torch.Tensor:
+    """Base-5 pack (int64) of every k-mer of one code strand, in O(log k)
+    tensor passes.
 
     ``reverse=False``: P[i] = sum_j codes[i+j] * 5**(k-1-j), the
     left-to-right pack. ``reverse=True``: R[i] = sum_j codes[i+j] * 5**j,
@@ -81,15 +94,15 @@ def _pack_poly(codes: np.ndarray, k: int, reverse: bool = False) -> np.ndarray:
 
     Square-and-multiply over the concatenation monoid
     ``concat(A_a, B_b)[i] = A[i] * 5**b + B[i+a]`` (the coefficients swap
-    sides when reversed); values stay below 5**MAX_K < 2**63, so uint64
+    sides when reversed); values stay below 5**MAX_K < 2**63, so int64
     arithmetic is exact."""
-    base = codes.astype(np.uint64)
+    base = codes.to(torch.int64)
 
     def _concat(A, a, B, b):
         m = A.shape[0] - b
         if reverse:
-            return A[:m] + B[a:a + m] * np.uint64(5 ** a)
-        return A[:m] * np.uint64(5 ** b) + B[a:a + m]
+            return A[:m] + B[a:a + m] * 5 ** a
+        return A[:m] * 5 ** b + B[a:a + m]
 
     acc, acc_len = None, 0
     for bit in bin(k)[2:]:
@@ -102,23 +115,24 @@ def _pack_poly(codes: np.ndarray, k: int, reverse: bool = False) -> np.ndarray:
             else:
                 acc = _concat(acc, acc_len, base, 1)
                 acc_len += 1
-    return acc if acc is not base else base.copy()
+    return acc
 
 
-def _kmer_hashes(codes: np.ndarray, k: int) -> np.ndarray:
-    """uint32 mixed hash per k-mer start position of one code strand."""
-    packed = _pack_poly(codes, k)
-    return (_splitmix64(packed) >> np.uint64(32)).astype(np.uint32)
+def _kmer_hashes(codes: torch.Tensor, k: int) -> torch.Tensor:
+    """The uint32 mixed hash of every k-mer start position of one code
+    strand: the high 32 bits of splitmix64, kept in int64 so that
+    comparisons and ``%`` keep the unsigned order."""
+    return _shr(_splitmix64(_pack_poly(codes, k)), 32)
 
 
-def _window_minima(vals: np.ndarray, w: int) -> np.ndarray:
+def _window_minima(vals: torch.Tensor, w: int) -> torch.Tensor:
     """Minimum over every window of ``w`` consecutive positions, in O(log w)
-    array passes (``concat(A_a, B_b)[i] = min(A[i], B[i+a])`` is
+    tensor passes (``concat(A_a, B_b)[i] = min(A[i], B[i+a])`` is
     associative, as in _pack_poly)."""
 
     def _concat(A, a, B, b):
         m = A.shape[0] - b
-        return np.minimum(A[:m], B[a:a + m])
+        return torch.minimum(A[:m], B[a:a + m])
 
     acc, acc_len = None, 0
     for bit in bin(w)[2:]:
@@ -131,47 +145,45 @@ def _window_minima(vals: np.ndarray, w: int) -> np.ndarray:
             else:
                 acc = _concat(acc, acc_len, vals, 1)
                 acc_len += 1
-    return acc if acc is not vals else vals.copy()
+    return acc
 
 
-def sketch_from_codes(fwd: np.ndarray, rc: np.ndarray, k: int, w: int,
-                      s: int) -> Tuple[np.ndarray, int]:
+def sketch_from_codes(fwd: torch.Tensor, rc: torch.Tensor, k: int, w: int,
+                      s: int) -> Tuple[torch.Tensor, int]:
     """Bottom-s minimizer sketch of one contig from its code-space strands
     (forward, reverse complement, as ``Sequence.encoded_strands()`` gives
-    them).
+    them), as torch ops on the strands' device.
 
-    Returns ``(sketch, m)``: a length-``s`` uint32 vector sorted ascending
-    and padded with :data:`SENTINEL`, and the count ``m`` of real values.
+    Returns ``(sketch, m)``: a length-``s`` int64 tensor of uint32 values on
+    that device, sorted ascending and padded with :data:`SENTINEL`, and the
+    count ``m`` of real values.
     """
     n = fwd.shape[0]
+    dev = fwd.device
+    sketch = torch.full((s,), int(SENTINEL), dtype=torch.int64, device=dev)
     if n < k + w - 1:
-        return np.full(s, SENTINEL, np.uint32), 0
+        return sketch, 0
     hf = _kmer_hashes(fwd, k)
     # the rc k-mer at rc-position (n - k - i) is the reverse complement of
     # the fwd k-mer at i; its pack is the mirrored polynomial over the
-    # complement strand at i, and rc[::-1] is that strand
-    pr = _pack_poly(np.ascontiguousarray(rc[::-1]), k, reverse=True)
-    hr = (_splitmix64(pr) >> np.uint64(32)).astype(np.uint32)
-    canon = np.minimum(hf, hr)
+    # complement strand at i, and rc reversed is that strand
+    hr = _shr(_splitmix64(_pack_poly(torch.flip(rc, (0,)), k,
+                                     reverse=True)), 32)
+    canon = torch.minimum(hf, hr)
     # a window holding a dot (pad or separator, code 0) never contributes
-    zeros = np.zeros(n + 1, np.int64)
-    np.cumsum(fwd == 0, out=zeros[1:])
+    zeros = torch.nn.functional.pad(torch.cumsum(fwd == 0, 0), (1, 0))
     dotted = (zeros[k:] - zeros[:-k]) > 0
-    canon[dotted] = SENTINEL
+    canon.masked_fill_(dotted, int(SENTINEL))
     minima = _window_minima(canon, w)
     # collapsing runs of equal minima first shrinks the sort without
     # changing the set of values
-    if minima.size > 1:
-        keep = np.empty(minima.size, bool)
-        keep[0] = True
-        np.not_equal(minima[1:], minima[:-1], out=keep[1:])
+    if minima.numel() > 1:
+        keep = torch.nn.functional.pad(minima[1:] != minima[:-1], (1, 0),
+                                       value=True)
         minima = minima[keep]
-    minimizers = np.unique(minima)
-    if minimizers.size and minimizers[-1] == SENTINEL:
-        minimizers = minimizers[:-1]
-    minimizers = minimizers[:s]
-    m = int(minimizers.size)
-    sketch = np.full(s, SENTINEL, np.uint32)
+    minimizers = torch.unique(minima)
+    minimizers = minimizers[minimizers != int(SENTINEL)][:s]
+    m = int(minimizers.numel())
     sketch[:m] = minimizers
     return sketch, m
 
@@ -185,15 +197,19 @@ def _contig_forward_bytes(seq, recon) -> np.ndarray:
 
 
 def sketch_matrix(graph, sequences,
-                  params: Optional[Tuple[int, int, int]] = None
-                  ) -> Tuple[np.ndarray, np.ndarray, List[int]]:
+                  params: Optional[Tuple[int, int, int]] = None,
+                  device=None) -> Tuple[np.ndarray, np.ndarray, List[int]]:
     """The stacked ``(n_contigs, s)`` uint32 sketch matrix, the count of
     real values in each row (int64) and the sequence ids, in ``sequences``
-    order. Contigs loaded from a GFA are rebuilt from their graph paths."""
+    order. Contigs loaded from a GFA are rebuilt from their graph paths and
+    encoded on the host; each contig's strands are then hashed on ``device``
+    (CUDA unless the caller asks for the CPU), and the matrix comes back in
+    one copy."""
     k, w, s = params if params is not None else sketch_params()
+    dev = resolve_device(device)
     missing = [q.id for q in sequences if not q.forward_seq.size]
     recon = graph.get_sequences_for_ids(missing) if missing else {}
-    S = np.full((len(sequences), s), SENTINEL, np.uint32)
+    rows = torch.empty((len(sequences), s), dtype=torch.int64, device=dev)
     valid = np.zeros(len(sequences), np.int64)
     ids: List[int] = []
     for i, seq in enumerate(sequences):
@@ -202,8 +218,10 @@ def sketch_matrix(graph, sequences,
             fwd, rc = seq.encoded_strands()
         else:
             fwd, rc = encode_both_strands(_contig_forward_bytes(seq, recon))
-        S[i], valid[i] = sketch_from_codes(fwd, rc, k, w, s)
-    return S, valid, ids
+        rows[i], valid[i] = sketch_from_codes(
+            torch.from_numpy(np.ascontiguousarray(fwd)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(rc)).to(dev), k, w, s)
+    return rows.cpu().numpy().astype(np.uint32), valid, ids
 
 
 def sketch_intersections_host(S: np.ndarray) -> np.ndarray:
@@ -280,7 +298,7 @@ def sketch_contig_distances(graph, sequences, device=None
                             ) -> Dict[Tuple[int, int], float]:
     """Sketch distances keyed by (seq_a.id, seq_b.id), shaped as
     ops.distance.pairwise_contig_distances' dict."""
-    S, valid, ids = sketch_matrix(graph, sequences)
+    S, valid, ids = sketch_matrix(graph, sequences, device=device)
     D = sketch_distance_matrix(S, valid, device)
     return {(ids[a], ids[b]): float(D[a, b])
             for a in range(len(ids)) for b in range(len(ids))}

@@ -1,6 +1,7 @@
 """Environment knobs, read as the JAX package reads them: an unset or blank
 variable gives the default, a malformed integer gives the default with one
-warning on stderr, and 0/false/no/off (any case) is a false boolean."""
+warning on stderr, and 0/false/no/off (any case) is a false boolean. A call
+without a default reads the knob's JAX default from :data:`DEFAULTS`."""
 
 from __future__ import annotations
 
@@ -10,20 +11,44 @@ import sys
 _FALSE_VALUES = ("0", "false", "no", "off")
 _warned = set()
 
+# the JAX package's names and defaults (autocycler_tpu/utils/knobs.py)
+DEFAULTS = {
+    # the streamed k-mer grouping (stream/): on/off force it, auto engages
+    # from AUTOCYCLER_STREAM_AUTO_WINDOWS windows (2 x the input bases)
+    "AUTOCYCLER_STREAM_KMERS": "auto",
+    "AUTOCYCLER_STREAM_MEM_MB": 512,
+    "AUTOCYCLER_STREAM_AUTO_WINDOWS": 64_000_000,
+    # <= 0: the planner sizes bins, chunks and flushes from the budget
+    "AUTOCYCLER_STREAM_BINS": 0,
+    "AUTOCYCLER_STREAM_CHUNK": 0,
+    "AUTOCYCLER_STREAM_FLUSH": 0,
+    "AUTOCYCLER_STREAM_SIG_K": 11,
+    "AUTOCYCLER_STREAM_RLE": True,
+    "AUTOCYCLER_STREAM_PIPELINE": 2,
+    # set: take --threads as the worker count, without the core clamp
+    "AUTOCYCLER_GROUPING_EXECUTOR": "",
+}
 
-def env_str(name: str, default: str) -> str:
+
+def env_str(name: str, default: str = None) -> str:
+    if default is None:
+        default = DEFAULTS[name]
     raw = os.environ.get(name)
     return default if raw is None or not raw.strip() else raw.strip()
 
 
-def env_bool(name: str, default: bool = False) -> bool:
+def env_bool(name: str, default: bool = None) -> bool:
+    if default is None:
+        default = DEFAULTS[name]
     raw = os.environ.get(name)
     if raw is None or not raw.strip():
         return default
     return raw.strip().lower() not in _FALSE_VALUES
 
 
-def env_int(name: str, default: int) -> int:
+def env_int(name: str, default: int = None) -> int:
+    if default is None:
+        default = DEFAULTS[name]
     raw = os.environ.get(name)
     if raw is None or not raw.strip():
         return default

@@ -1,0 +1,93 @@
+"""The process-wide worker pool and the two ordered shapes the streamed
+k-mer grouping runs on it, as the JAX package's utils/pool.py has them: a
+depth-bounded serial lane (pass 1's disk appends) and a read-ahead iterator
+(pass 2's bin reads). Both keep their input order, so what they produce is
+the same at every depth and worker count."""
+
+from __future__ import annotations
+
+import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Iterator, Sequence
+
+_lock = threading.Lock()
+_executor = None
+_executor_width = 0
+
+
+def get_executor(workers: int) -> ThreadPoolExecutor:
+    """The shared ``ThreadPoolExecutor``, grown to at least ``workers``
+    threads. Callers must not shut it down."""
+    global _executor, _executor_width
+    workers = max(1, int(workers))
+    with _lock:
+        if _executor is None or _executor_width < workers:
+            # growing replaces the executor; the old one finishes its work
+            old = _executor
+            _executor = ThreadPoolExecutor(
+                max_workers=workers, thread_name_prefix="autocycler-pool")
+            _executor_width = workers
+            if old is not None:
+                old.shutdown(wait=False)
+        return _executor
+
+
+class OrderedSubmitter:
+    """A serial lane on the shared executor: jobs run strictly in submission
+    order (each waits on its predecessor's future first), with at most
+    ``depth`` futures outstanding, ``submit`` blocking on the oldest when
+    the lane is full. ``drain`` re-raises the first job's exception."""
+
+    def __init__(self, workers: int, depth: int = 2):
+        self._workers = max(1, int(workers))
+        self._depth = max(1, int(depth))
+        self._pending: deque = deque()
+        self._prev = None
+
+    def submit(self, fn: Callable, *args) -> None:
+        prev = self._prev
+
+        def job():
+            if prev is not None:
+                prev.result()       # keep the order; a failure propagates
+            return fn(*args)
+
+        while len(self._pending) >= self._depth:
+            self._pending.popleft().result()
+        # fetched per submit: growing the pool replaces the executor
+        fut = get_executor(self._workers).submit(job)
+        self._prev = fut
+        self._pending.append(fut)
+
+    def drain(self) -> None:
+        """Waits for every submitted job; raises the first job exception."""
+        try:
+            while self._pending:
+                self._pending.popleft().result()
+        finally:
+            self._pending.clear()
+            self._prev = None
+
+
+def prefetch_iter(fn: Callable, items: Sequence, workers: int,
+                  depth: int = 2) -> Iterator:
+    """Yields ``fn(item)`` for each item in order, with up to ``depth``
+    calls in flight ahead of the consumer on the shared executor;
+    ``depth <= 1`` is a plain serial generator."""
+    items = list(items)
+    if depth <= 1 or len(items) <= 1:
+        for x in items:
+            yield fn(x)
+        return
+    pending: deque = deque()
+    i = 0
+    try:
+        while pending or i < len(items):
+            while i < len(items) and len(pending) < depth:
+                pending.append(get_executor(workers).submit(fn, items[i]))
+                i += 1
+            yield pending.popleft().result()
+    finally:
+        for fut in pending:
+            fut.cancel()

@@ -70,7 +70,7 @@ def stage_timer(name: str):
     finally:
         elapsed = time.perf_counter() - start
         _stages[name] = _stages.get(name, 0.0) + elapsed
-        if env_bool("AUTOCYCLER_TIMINGS"):
+        if env_bool("AUTOCYCLER_TIMINGS", False):
             log.message(f"[timing] {name}: {format_duration(elapsed)}")
             for sub, secs in substage_deltas(before).items():
                 log.message(f"[timing] {name} · {sub}: "

@@ -11,17 +11,26 @@ Phases (any failure exits non-zero, and the result lines are not printed):
              also at the edges of its wgmma design (bands, stages, depth
              padding, work units, the generic path at k = 65); then [dp]:
              the two alignment DPs (torch ops) on the card against the
-             same functions on CPU tensors, exact.
+             same functions on CPU tensors, exact; then [hash]: the
+             minimizer hashing (torch ops) and the sketches on the card
+             against CPU tensors, exact; then [stream]: the streamed
+             grouping at a forced plan (8 bins, chunks of 4096 windows,
+             flushes of 512 records), RLE on and off, against the
+             in-memory grouping on the card, exact.
 3. main    — the headline configuration (24 assemblies of a 6 Mbp chromosome
              + 120 kb plasmid, seed 7) through the port's CLI: compress at
-             k=51, then decompress, which must restore the input FASTAs byte
+             k=51 with the default knobs, so streamed (one grouping launch
+             a bin and one for the merge; no degrade may be recorded), then
+             decompress, which must restore the input FASTAs byte
              for byte; then cluster (2 QC-pass clusters), the plasmid
              cluster's dotplot in auto and in device grid mode (identical
              PNGs), the chromosome cluster's dotplot (24 x 6 Mbp, 576
-             pairs) in auto mode, and trim, resolve and combine: a
+             pairs; cut to its first 8 contigs, 64 pairs, from a FASTA)
+             in auto mode, and trim, resolve and combine: a
              consensus of 2 circular records equal to the generator's
              replicons up to rotation and strand. Then the overlap
-             configuration, the headline with each contig's first
+             configuration, the first 12 of the headline's assemblies
+             with each contig's first
              2-20 kb (chromosome) or 0.5-5 kb (plasmid) appended to its
              end, through compress, cluster, trim (whose overlap DP must
              run on the card and cut every contig back to its replicon's
@@ -37,12 +46,22 @@ Phases (any failure exits non-zero, and the result lines are not printed):
              True), trim and resolve with preloaded=...), the collector off:
              every file must equal the CLI run's; each stage's wall, stage
              and substage seconds and the counters are printed.
+   stream  — the headline compress once more through the CLI with
+             AUTOCYCLER_STREAM_KMERS=off (the in-memory grouping): its GFA
+             and YAML must equal [main]'s; both runs' walls,
+             compress/build_graph and peak device memory. Then each
+             compress (streamed, in memory) once more in a fresh process,
+             the same GFA and YAML, for its wall, peak host RSS
+             (VmRSS sampled every 10 ms) and peak device memory.
    sketch  — the plasmid-rich configuration (24 assemblies of a 5.3 Mbp
              chromosome and ten plasmids of 2.5-250 kb, 264 contigs, seed
-             13): compress, then cluster with the default knob (sketch
-             distances), with verify and with exact distances, 11 QC-pass
-             clusters and one partition in all three; then the sketch
-             intersection grid on the card against its host version, exact.
+             13): compress (streamed, and once more in memory: the same
+             files), then cluster with the default knob (sketch
+             distances, hashed on the card), with verify and with exact
+             distances, 11 QC-pass clusters and one partition in all three;
+             then the sketch intersection grid on the card against its
+             host version, and 8 contigs' sketches on the card against the
+             CPU's, exact.
 4. grid    — the match-grid throughput entry (benchmark_gcells) at 524,288^2
              and k=32 for the word kernel and both product kernels; at equal
              tiles the three grids must equal one another and the plain
@@ -52,10 +71,12 @@ Phases (any failure exits non-zero, and the result lines are not printed):
              computes the function, beside the least time the card allows.
              The +-1 product also gives its launch alone (kernel_ms, the
              wrapper's CUDA events) and its registers, spills and shared
-             memory. The k-mer grouping is timed at compress's three shapes
-             and at the first plasmid- and chromosome-dotplot pair's, with its
-             first partition's statistics, its time per pass and, at k=51,
-             its peak device memory.
+             memory. The k-mer grouping is timed at the streamed compress's
+             shapes (end repair, every bin, the merge, the gram grouping),
+             at the in-memory k=51 shape of [stream] and at the first
+             plasmid- and chromosome-dotplot pair's, with its first
+             partition's statistics, its time per pass and, at k=51, its
+             peak device memory.
 
 The last two lines are the ``{"kernels": [...]}`` record and
 ``{"ok": true, "device": {...}}``. Imports neither jax nor the JAX package.
@@ -67,6 +88,7 @@ import contextlib
 import io
 import json
 import shutil
+import os
 import subprocess
 import sys
 import tempfile
@@ -97,6 +119,13 @@ HEADLINE = dict(n_assemblies=24, chromosome_len=6_000_000,
 # lengths, once a job passes the host screen.
 OVERLAPS = ((2_000, 20_000), (500, 5_000))
 OVERLAP_SEED = 11
+# Depth cuts, so that the streamed compresses (twice the in-memory wall on
+# the card) fit the time the script has run in: the overlap configuration
+# takes the first 12 of the headline's 24 assemblies (12 trim jobs a
+# cluster; the overlap DP's rows stay at the K = 5000 cap), and the
+# chromosome-cluster dotplot the first 8 of its 24 contigs (64 pairs).
+OVERLAP_ASSEMBLIES = 12
+CHROMOSOME_DOTPLOT_CONTIGS = 8
 # the plasmid-rich configuration: a chromosome and ten plasmids, 24 times,
 # 264 contigs, so that cluster's default (auto) sketches. No source gives
 # these lengths: they span the plasmid sizes that multi-plasmid
@@ -146,6 +175,143 @@ def phase_kernels() -> None:
     kernels_match_grid()
     kernels_pm1_edges()
     check_dps()
+    check_hashing()
+    check_stream()
+
+
+def _strands(rng, k: int, w: int):
+    """Code strands (numpy, 0..4) for the hashing: random at 1 Mbp, dotted
+    inside, dot-padded, poly-A, one base short of a window of k + w - 1
+    and exactly one window."""
+    body = rng.integers(1, 5, size=1 << 20).astype(np.uint8)
+    dotted = body.copy()
+    dotted[rng.integers(0, len(dotted), size=1 << 12)] = 0
+    dot = np.zeros(25, np.uint8)
+    window = k + w - 1
+    return {"random": body, "dotted": dotted,
+            "padded": np.concatenate([dot, body[:100_000], dot]),
+            "poly-A": np.full(50_000, 1, np.uint8),
+            "short": body[:window - 1], "one window": body[:window]}
+
+
+def check_hashing() -> None:
+    """[hash]: the minimizer hashing (ops/sketch.py, torch ops) on the card
+    against the same torch ops on CPU tensors, exact: splitmix64 over
+    int64 with the top bit set, the base-5 packs both ways, the k-mer
+    hashes, the window minima and sketch_from_codes at s = 1024, for k in
+    4, 11, 21, 27 and w in 1, 11."""
+    from autocycler_tpu_torch.ops import sketch
+
+    rng = np.random.default_rng(19)
+    x = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1,
+                                      size=1 << 20, dtype=np.int64))
+    if not torch.equal(sketch._splitmix64(x.cuda()).cpu(),
+                       sketch._splitmix64(x)):
+        raise AssertionError("[hash] splitmix64 differs on the card")
+    cases = 1
+    for k in (4, 11, 21, 27):
+        for w in (1, 11):
+            for label, fwd in _strands(rng, k, w).items():
+                rc = ((5 - fwd[::-1].astype(np.int64)) % 5).astype(np.uint8)
+                on = {dev: (torch.from_numpy(fwd).to(dev),
+                            torch.from_numpy(rc).to(dev))
+                      for dev in ("cuda", "cpu")}
+                got, want = (
+                    [sketch._pack_poly(f, k), sketch._pack_poly(r, k, True),
+                     sketch._window_minima(sketch._kmer_hashes(f, k), w),
+                     *sketch.sketch_from_codes(f, r, k, w, 1024)]
+                    for f, r in (on["cuda"], on["cpu"]))
+                for name, a, b in zip(("pack", "mirrored pack",
+                                       "window minima", "sketch", "m"),
+                                      got, want):
+                    same = torch.equal(a.cpu(), b) if torch.is_tensor(a) \
+                        else a == b
+                    if not same:
+                        raise AssertionError(f"[hash] k={k} w={w} {label}: "
+                                             f"{name} differs on the card")
+                cases += 1
+    log(f"[hash] the hashing on the card equals the CPU's in {cases} cases "
+        "(exact)")
+
+
+def _strand_layout(seqs, k: int):
+    """The concatenated padded strands of ``seqs`` (code arrays) as
+    build_kmer_index lays them out: (codes, seq_len, fwd_off, rev_off,
+    occ_off, starts)."""
+    dots = np.zeros(k // 2, np.uint8)
+    bufs, lens, fwd, rev, occ = [], [], [], [], []
+    pos = base = 0
+    for seq in seqs:
+        f = np.concatenate([dots, seq, dots])
+        r = ((5 - f[::-1].astype(np.int64)) % 5).astype(np.uint8)
+        lens.append(len(seq))
+        fwd.append(pos)
+        rev.append(pos + len(f))
+        occ.append(base)
+        bufs += [f, r]
+        pos += 2 * len(f)
+        base += 2 * len(seq)
+    arrays = [np.array(a, np.int64) for a in (lens, fwd, rev, occ)]
+    starts = np.concatenate([np.arange(o, o + n) for n, fo, ro in
+                             zip(*arrays[:3]) for o in (fo, ro)])
+    return (np.concatenate(bufs), *arrays, starts)
+
+
+def check_stream() -> None:
+    """[stream] in [kernels]: stream_group_windows_stats on a small input
+    (1.2 M windows with repeats across contigs and a poly-A stretch) at a
+    forced plan, 8 bins, chunks of 4096 windows, flushes of 512 records,
+    RLE on and off, against the in-memory grouping on the card, exact;
+    each bin and the merge one counted grouping launch."""
+    from autocycler_tpu_torch import device
+    from autocycler_tpu_torch.ops import kmers
+    from autocycler_tpu_torch.stream import spill, stream_group_windows_stats
+
+    rng = np.random.default_rng(23)
+    genome = rng.integers(1, 5, size=250_000).astype(np.uint8)
+    variant = np.roll(genome, 4321)
+    variant[rng.integers(0, len(variant), size=40)] = \
+        rng.integers(1, 5, size=40).astype(np.uint8)
+    poly_a = rng.integers(1, 5, size=60_000).astype(np.uint8)
+    poly_a[10_000:20_000] = 1
+    seqs = [genome, variant, genome[:30_000], poly_a,
+            rng.integers(1, 5, size=180_000).astype(np.uint8), genome[:60]]
+    k = 51
+    codes, seq_len, fwd_off, rev_off, occ_off, starts = _strand_layout(seqs, k)
+    want = kmers.group_windows_stats(codes, starts, k, device="cuda")
+    knobs = {"AUTOCYCLER_STREAM_BINS": "8", "AUTOCYCLER_STREAM_CHUNK": "4096",
+             "AUTOCYCLER_STREAM_FLUSH": "512"}
+    saved = {name: os.environ.get(name) for name in
+             (*knobs, "AUTOCYCLER_STREAM_RLE")}
+    try:
+        os.environ.update(knobs)
+        for rle in ("1", "0"):
+            os.environ["AUTOCYCLER_STREAM_RLE"] = rle
+            spill.reset_counters()
+            device.reset_counts()
+            got = stream_group_windows_stats(
+                torch.from_numpy(codes).cuda(), seq_len, fwd_off, rev_off,
+                occ_off, k, threads=1)
+            run = dict(spill.last_run)
+            for name, a, b in zip(("gid", "order", "depth", "first_occ"),
+                                  got, want):
+                if not np.array_equal(a, b):
+                    raise AssertionError(f"[stream] RLE {rle}: {name} "
+                                         "differs from the in-memory grouping")
+            if run["n_bins"] != 8 or run["sort_launches"] != run["bins"] \
+                    or run["merge_launches"] != 1:
+                raise AssertionError(f"[stream] RLE {rle}: plan or launches "
+                                     f"{json.dumps(run)}")
+            log(f"[stream] RLE {rle}: {len(starts)} windows, equal to the "
+                f"in-memory grouping on the card (exact); "
+                + json.dumps({key: run[key] for key in (
+                    "bins", "chunks", "spill_bytes", "rle_ratio",
+                    "sort_launches", "merge_launches")}))
+    finally:
+        for name, value in saved.items():
+            os.environ.pop(name, None)
+            if value is not None:
+                os.environ[name] = value
 
 
 def _random_path(rng, n: int, n_units: int, overlap):
@@ -523,9 +689,7 @@ def phase_main(work: Path):
     sys.path.insert(0, str(REPO / "tests"))
     from synthetic import make_assemblies_fast
 
-    from autocycler_tpu_torch import cli, device
-    from autocycler_tpu_torch.ops import sortnet
-    from autocycler_tpu_torch.utils import timing
+    from autocycler_tpu_torch import cli
 
     small_pipeline(work)
 
@@ -534,41 +698,18 @@ def phase_main(work: Path):
     log(f"[main] headline inputs generated in "
         f"{time.perf_counter() - t0:.3f} s: {HEADLINE}")
 
-    captured = []
-    real = sortnet.pack_rank_cuda
-
-    def capture(codes, starts, k):
-        captured.append((codes, starts, k))
-        return real(codes, starts, k)
-
-    sortnet.pack_rank_cuda = capture
     out = work / "out"
-    stderr = io.StringIO()
-    try:
-        device.reset_counts()
-        timing.reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stderr(stderr):
-            rc = cli.main(["compress", "-i", str(asm), "-a", str(out),
-                           "--kmer", "51"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(device.launches)
-        kernel_ms = {n: device.kernel_ms(n) for n, c in launches.items() if c}
-    finally:
-        sortnet.pack_rank_cuda = real
-    if rc != 0:
-        raise RuntimeError(f"[main] compress exited {rc}:\n"
-                           f"{stderr.getvalue()[-3000:]}")
-    log(f"[main] compress wall {wall:.3f} s, stages (s): "
-        f"{json.dumps(timing.stage_seconds())}, substages (s): "
-        f"{json.dumps(timing.substage_snapshot())}")
-    log(f"[main] kernel launches {launches}, kernel time (ms, CUDA events) "
-        + json.dumps(kernel_ms))
-    if launches["sortnet_pack_rank"] == 0:
-        raise AssertionError("[main] compress never launched the sort network")
+    compressed = run_cli("compress", ["compress", "-i", asm, "-a", out,
+                                      "--kmer", "51"])
+    launches = compressed["launches"]
+    compressed["stream"] = check_streamed("main", "compress", compressed)
+    if sorted(p.name for p in out.iterdir()) != [
+            ".stream", "input_assemblies.gfa", "input_assemblies.yaml"] or \
+            list((out / ".stream").iterdir()):
+        raise AssertionError("[main] compress left another tree than the "
+                             "JAX package's streamed compress")
 
+    stderr = io.StringIO()
     recon = work / "recon"
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(stderr):
@@ -590,7 +731,7 @@ def phase_main(work: Path):
         raise AssertionError("[main] headline resolve never dispatched its "
                              "medoid DP")
     overlap_configuration(work, replicons)
-    return ({"compress": launches, **paths}, captured, plasmid_pair,
+    return ({"compress": launches, **paths}, compressed, plasmid_pair,
             dotplot_groupings)
 
 
@@ -659,7 +800,8 @@ def overlap_configuration(work: Path, replicons) -> None:
     from synthetic import make_assemblies_fast
 
     t0 = time.perf_counter()
-    asm = append_start_overlaps(make_assemblies_fast(work / "overlap", **HEADLINE),
+    asm = append_start_overlaps(make_assemblies_fast(
+        work / "overlap", **{**HEADLINE, "n_assemblies": OVERLAP_ASSEMBLIES}),
                                 np.random.default_rng(OVERLAP_SEED), *OVERLAPS)
     total = sum(len(line) for f in asm.iterdir()
                 for line in f.read_text().splitlines()[1::2])
@@ -698,36 +840,97 @@ def overlap_configuration(work: Path, replicons) -> None:
 
 
 def run_cli(label: str, argv, phase: str = "main") -> dict:
-    """One CLI call with every launch count, DP record and timer set to 0
-    just before it and read just after. Returns its launches, DP dispatches
-    and stage seconds; its wall seconds and substages go to the log."""
+    """One CLI call with every launch count, DP record, spill counter,
+    degrade record and timer set to 0 just before it and read just after.
+    A degrade recorded in the call fails it. Returns its launches, DP
+    dispatches, stage and substage seconds, wall seconds, the streamed
+    grouping's record (empty when it grouped in memory), and its peak
+    device memory above what was held before it; for a compress, also
+    compress/build_graph's own peak device memory."""
     from autocycler_tpu_torch import cli, device
-    from autocycler_tpu_torch.utils import timing
+    from autocycler_tpu_torch.commands import compress
+    from autocycler_tpu_torch.stream import spill
+    from autocycler_tpu_torch.utils import resilience, timing
 
     device.reset_counts()
+    spill.reset_counters()
+    resilience.reset_degrades()
     timing.reset()
     stderr = io.StringIO()
     torch.cuda.synchronize()
+    device_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    peaks = {"device_bytes_before": device_before}
+    build_unitig_graph = compress.build_unitig_graph
+
+    def build_graph_peak(*args, **kwargs):
+        # the peak so far is kept, then build_graph's own is measured
+        torch.cuda.synchronize()
+        peaks["load_peak_device_bytes"] = \
+            torch.cuda.max_memory_allocated() - device_before
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        graph = build_unitig_graph(*args, **kwargs)
+        torch.cuda.synchronize()
+        peaks["build_graph_peak_device_bytes"] = \
+            torch.cuda.max_memory_allocated() - before
+        return graph
+
+    compress.build_unitig_graph = build_graph_peak
     t0 = time.perf_counter()
-    with contextlib.redirect_stderr(stderr):
-        rc = cli.main([str(a) for a in argv])
-    torch.cuda.synchronize()
+    try:
+        with contextlib.redirect_stderr(stderr):
+            rc = cli.main([str(a) for a in argv])
+            torch.cuda.synchronize()
+    finally:
+        compress.build_unitig_graph = build_unitig_graph
     wall = time.perf_counter() - t0
+    peaks["peak_device_bytes"] = max(
+        torch.cuda.max_memory_allocated() - device_before,
+        peaks.get("load_peak_device_bytes", 0))
     launches = dict(device.launches)
     kernel_ms = {n: device.kernel_ms(n) for n, c in launches.items() if c}
     dps = {n: device.dp_summary(n) for n in device.dp_dispatches}
     if rc != 0:
         raise RuntimeError(f"[{phase}] {label} exited {rc}:\n"
                            f"{stderr.getvalue()[-3000:]}")
+    if resilience.degrade_events():
+        raise AssertionError(f"[{phase}] {label} recorded a degrade: "
+                             f"{resilience.degrade_events()}")
     dp_text = "".join(
         f", {n} {json.dumps({k: v for k, v in d.items() if k != 'each'})}"
         for n, d in dps.items() if d["dispatches"])
     stages = timing.stage_seconds()
+    substages = timing.substage_snapshot()
     log(f"[{phase}] {label}: wall {wall} s, launches {launches}, kernel time "
         f"(ms, CUDA events) {json.dumps(kernel_ms)}, stages (s) "
         f"{json.dumps(stages)}, substages (s) "
-        f"{json.dumps(timing.substage_snapshot())}{dp_text}")
-    return {"launches": launches, "dp": dps, "stages": stages}
+        f"{json.dumps(substages)}{dp_text}, memory {json.dumps(peaks)}")
+    return {"launches": launches, "dp": dps, "stages": stages,
+            "substages": substages, "wall_s": wall, "stream": dict(spill.last_run),
+            **peaks}
+
+
+STREAM_SUBSTAGES = ("stream-kmers", "stream-bin", "stream-sort",
+                    "stream-merge", "stream-stitch")
+
+
+def check_streamed(phase: str, label: str, run: dict) -> dict:
+    """The compress ``run`` streamed its grouping: one counted grouping
+    launch a bin and one for the merge. Logs the stream's substages, bins,
+    spill bytes and RLE ratio; returns them."""
+    stream = run["stream"]
+    if not stream:
+        raise AssertionError(f"[{phase}] {label} did not stream its grouping")
+    if stream["sort_launches"] != stream["bins"] or \
+            stream["merge_launches"] != 1:
+        raise AssertionError(f"[{phase}] {label}: grouping launches "
+                             f"{stream['sort_launches']} for {stream['bins']} "
+                             f"bins, {stream['merge_launches']} for the merge")
+    record = {**stream, "substages_s": {
+        name: run["substages"].get(name) for name in STREAM_SUBSTAGES}}
+    log(f"[{phase}] {label} streamed: {json.dumps(record)}")
+    return record
 
 
 def _cluster_median(cluster_dir: Path) -> int:
@@ -738,18 +941,19 @@ def _cluster_median(cluster_dir: Path) -> int:
 
 
 @contextlib.contextmanager
-def first_grouping_inputs():
-    """Keeps the (codes, starts, k) of the first grouping launched inside the
-    block, for the timing phase."""
+def groupings_launched(first: bool = False, k=None):
+    """Keeps the (codes, starts, k) of the groupings launched inside the
+    block, for [timing]: all of them, or only the first; of any k, or of
+    the given one."""
     from autocycler_tpu_torch.ops import sortnet
 
     seen = []
     real = sortnet.pack_rank_cuda
 
-    def capture(codes, starts, k):
-        if not seen:
-            seen.append((codes, starts, k))
-        return real(codes, starts, k)
+    def capture(codes, starts, window):
+        if (k is None or window == k) and not (first and seen):
+            seen.append((codes, starts, window))
+        return real(codes, starts, window)
 
     sortnet.pack_rank_cuda = capture
     try:
@@ -773,7 +977,7 @@ def cluster_and_dotplot(work: Path, out: Path):
     chromosome = max(qc_pass, key=_cluster_median) / "1_untrimmed.gfa"
 
     pngs = {mode: work / f"plasmid_{mode}.png" for mode in ("auto", "device")}
-    with first_grouping_inputs() as plasmid_grouping:
+    with groupings_launched(first=True) as plasmid_grouping:
         paths["dotplot auto"] = run_cli(
             "plasmid cluster dotplot, auto",
             ["dotplot", "-i", plasmid, "-o", pngs["auto"]])["launches"]
@@ -807,11 +1011,20 @@ def cluster_and_dotplot(work: Path, out: Path):
         raise AssertionError("[profile] the profiled dotplot differs")
 
     # every pair is a 6 Mbp x 6 Mbp sort-join; the device grid would be
-    # 3.6e13 cells a pair, past MAX_DEVICE_CELLS, so auto mode only
-    with first_grouping_inputs() as chromosome_grouping:
+    # 3.6e13 cells a pair, past MAX_DEVICE_CELLS, so auto mode only. Cut in
+    # depth to the cluster's first CHROMOSOME_DOTPLOT_CONTIGS contigs (a
+    # FASTA decompressed from its GFA), so that the script keeps its time
+    from autocycler_tpu_torch.commands.decompress import decompress
+    with contextlib.redirect_stderr(io.StringIO()):
+        decompress(chromosome, None, work / "chromosome_cluster.fasta")
+    lines = (work / "chromosome_cluster.fasta").read_text().splitlines(True)
+    fasta = work / "chromosomes.fasta"
+    fasta.write_text("".join(lines[:2 * CHROMOSOME_DOTPLOT_CONTIGS]))
+    with groupings_launched(first=True) as chromosome_grouping:
         paths["dotplot chromosomes"] = run_cli(
-            "chromosome cluster dotplot, auto",
-            ["dotplot", "-i", chromosome, "-o", work / "chromosomes.png"])["launches"]
+            f"chromosome cluster dotplot, auto, {CHROMOSOME_DOTPLOT_CONTIGS} "
+            "contigs", ["dotplot", "-i", fasta, "-o",
+                        work / "chromosomes.png"])["launches"]
     if paths["dotplot chromosomes"]["sortnet_pack_rank"] == 0:
         raise AssertionError("[main] the chromosome dotplot launched no "
                              "kernel")
@@ -896,10 +1109,13 @@ def _in_process(label: str, flow) -> dict:
     import gc
 
     from autocycler_tpu_torch import device
-    from autocycler_tpu_torch.utils import timing
+    from autocycler_tpu_torch.stream import spill
+    from autocycler_tpu_torch.utils import resilience, timing
 
     steps = {}
     device.reset_counts()
+    spill.reset_counters()
+    resilience.reset_degrades()
     timing.reset()
     gc.disable()
     t0 = time.perf_counter()
@@ -919,8 +1135,12 @@ def _in_process(label: str, flow) -> dict:
     log(f"[handoff] {label}: pipeline wall {wall} s, launches {launches}, "
         f"kernel time (ms, CUDA events) {json.dumps(kernel_ms)}, DP "
         f"dispatches {json.dumps(dps)}")
+    if resilience.degrade_events():
+        raise AssertionError(f"[handoff] {label} recorded a degrade: "
+                             f"{resilience.degrade_events()}")
     steps["wall_s"] = wall
     steps["launches"] = launches
+    steps["stream"] = dict(spill.last_run)
     return steps
 
 
@@ -933,7 +1153,8 @@ def phase_handoff(work: Path) -> None:
     writing the files between them as the CLI does, so that the hand-over's
     gain stands apart from that of running in one process with the
     collector off. Every file either writes must equal the CLI run's in
-    [main]."""
+    [main]. The compress streams, as in [main]; every grouping it launches
+    is kept for [timing] and returned."""
     from autocycler_tpu_torch.commands.cluster import cluster
     from autocycler_tpu_torch.commands.combine import combine
     from autocycler_tpu_torch.commands.compress import compress
@@ -944,7 +1165,9 @@ def phase_handoff(work: Path) -> None:
     files = work / "handoff_files"
 
     def handed_over(steps):
-        _pipeline_step(steps, "compress", compress, asm, out, 51)
+        # the CLI's default --threads, so that the plan, and so the
+        # grouping shapes kept for [timing], are [main]'s
+        _pipeline_step(steps, "compress", compress, asm, out, 51, threads=8)
         handoff = _pipeline_step(steps, "cluster", cluster, out,
                                  collect_handoff=True)
         clusters = sorted(handoff)
@@ -965,10 +1188,14 @@ def phase_handoff(work: Path) -> None:
         _pipeline_step(steps, "combine", combine, files,
                        [c / "5_final.gfa" for c in clusters])
 
-    run = _in_process("hand-over", handed_over)
-    if run["launches"]["sortnet_pack_rank"] == 0:
-        raise AssertionError("[handoff] compress never launched the sort "
-                             "network")
+    with groupings_launched() as compress_groupings:
+        run = _in_process("hand-over", handed_over)
+    stream = run["stream"]
+    if not stream or run["launches"]["sortnet_pack_rank"] != \
+            stream["bins"] + 3:
+        raise AssertionError("[handoff] compress did not stream, or launched "
+                             "another grouping count than end repair, one a "
+                             "bin, the merge and the gram grouping")
     if not _same_files(work / "out", out):
         raise AssertionError("[handoff] the in-process hand-over's files "
                              "differ from the CLI run's in [main]")
@@ -981,6 +1208,128 @@ def phase_handoff(work: Path) -> None:
                              "differ from the CLI run's in [main]")
     log("[handoff] the hand-over and the in-process file flow write every "
         "file the CLI run in [main] does, byte for byte")
+    return compress_groupings, stream["bins"]
+
+
+# One CLI call in a fresh process: the resident set after torch's import
+# and the CUDA context, then the call's wall, the process's peak resident
+# set (VmRSS sampled every 10 ms: a peak shorter than that can be missed)
+# and its peak device memory, as JSON into argv[1]. Neither VmHWM nor
+# getrusage's ru_maxrss serves everywhere: some kernels give no VmHWM, and
+# an ru_maxrss that is not the process's own.
+_PEAK_CHILD = r"""
+import json, sys, threading, time
+import torch
+from autocycler_tpu_torch import cli
+
+def rss():
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+before = sampled = rss()
+stop = threading.Event()
+
+def sample():
+    global sampled
+    while not stop.wait(0.01):
+        sampled = max(sampled, rss())
+
+sampler = threading.Thread(target=sample, daemon=True)
+sampler.start()
+t0 = time.perf_counter()
+rc = cli.main(sys.argv[2:])
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+stop.set()
+sampler.join()
+with open(sys.argv[1], "w") as f:
+    json.dump({"rc": rc, "wall_s": wall, "host_rss_bytes_before": before,
+               "peak_host_rss_bytes": max(sampled, rss()),
+               "peak_device_bytes": torch.cuda.max_memory_allocated()}, f)
+"""
+
+
+def compress_fresh_process(label: str, asm: Path, out: Path, mode: str,
+                        expected: Path) -> dict:
+    """The headline compress with AUTOCYCLER_STREAM_KMERS=``mode`` in a
+    fresh process, so that its host peak is its own: the process's peak
+    resident set against its resident set once torch and the CUDA context
+    are up. Its
+    GFA and YAML must equal those in ``expected``."""
+    result = out.parent / f"{out.name}.json"
+    env = {**os.environ, "AUTOCYCLER_STREAM_KMERS": mode,
+           "PYTHONPATH": os.pathsep.join(
+               [str(REPO), os.environ.get("PYTHONPATH", "")])}
+    torch.cuda.empty_cache()
+    proc = subprocess.run(
+        [sys.executable, "-c", _PEAK_CHILD, str(result), "compress", "-i",
+         str(asm), "-a", str(out), "--kmer", "51"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"[stream] {label} exited {proc.returncode}:\n"
+                           f"{proc.stderr[-3000:]}")
+    run = json.loads(result.read_text())
+    if run["rc"] != 0:
+        raise RuntimeError(f"[stream] {label}: compress returned {run['rc']}"
+                           f":\n{proc.stderr[-3000:]}")
+    if (out / ".stream").exists() != (mode == "auto"):
+        raise AssertionError(f"[stream] {label}: the grouping path is not "
+                             f"AUTOCYCLER_STREAM_KMERS={mode}'s")
+    for name in ("input_assemblies.gfa", "input_assemblies.yaml"):
+        if (out / name).read_bytes() != (expected / name).read_bytes():
+            raise AssertionError(f"[stream] {label}: {name} differs from "
+                                 "[main]'s")
+    run["peak_host_rss_above_start_bytes"] = \
+        run["peak_host_rss_bytes"] - run["host_rss_bytes_before"]
+    return run
+
+
+def phase_stream(work: Path, streamed: dict):
+    """The headline compress once more through the CLI, grouping in memory
+    (AUTOCYCLER_STREAM_KMERS=off): its GFA and YAML must equal [main]'s
+    streamed run's. Logs both runs' walls, compress/build_graph and peak
+    device memory; then each compress once more in a fresh process
+    (streamed, in memory), for its peak host RSS. Returns the in-memory
+    k=51 grouping's inputs, for [timing]."""
+    asm, out = work / "headline" / "assemblies", work / "in_memory"
+    os.environ["AUTOCYCLER_STREAM_KMERS"] = "off"
+    try:
+        with groupings_launched(first=True, k=51) as k51:
+            in_memory = run_cli("headline compress, in memory",
+                                ["compress", "-i", asm, "-a", out,
+                                 "--kmer", "51"], "stream")
+    finally:
+        os.environ.pop("AUTOCYCLER_STREAM_KMERS")
+    if in_memory["stream"] or (out / ".stream").exists():
+        raise AssertionError("[stream] the in-memory compress streamed")
+    for name in ("input_assemblies.gfa", "input_assemblies.yaml"):
+        if (out / name).read_bytes() != (work / "out" / name).read_bytes():
+            raise AssertionError(f"[stream] {name} of the in-memory compress "
+                                 "differs from the streamed one's in [main]")
+    keys = ("wall_s", "peak_device_bytes", "build_graph_peak_device_bytes",
+            "device_bytes_before")
+    log("[stream] headline compress, streamed ([main]) against in memory: "
+        + json.dumps({label: {**{key: run[key] for key in keys},
+                              "build_graph_s": run["stages"][
+                                  "compress/build_graph"],
+                              "grouping_launches": run["launches"][
+                                  "sortnet_pack_rank"]}
+                      for label, run in (("streamed", streamed),
+                                         ("in_memory", in_memory))}))
+    log("[stream] the in-memory compress writes [main]'s GFA and YAML, byte "
+        "for byte")
+    fresh = {label: compress_fresh_process(f"headline compress, {label}, fresh "
+                                        "process", asm,
+                                        work / f"fresh_{label}", mode,
+                                        work / "out")
+             for label, mode in (("streamed", "auto"), ("in_memory", "off"))}
+    log("[stream] headline compress in a fresh process each, the same GFA "
+        "and YAML: " + json.dumps(fresh))
+    return k51[0]
 
 
 def make_plasmid_rich(root: Path) -> Path:
@@ -1039,14 +1388,15 @@ def _recorded(module, name: str, keep):
 
 
 def phase_sketch(work: Path) -> None:
-    """The plasmid-rich configuration (264 contigs): compress, then cluster
-    through the CLI with the default knob (auto, so sketch distances), with
-    verify, and with exact distances: 11 QC-pass clusters each time and the
-    same partition. The sketch runs' host sketching seconds, their grid's
-    CUDA-event ms and verify's record are read from inside the CLI calls;
-    each grid must equal sketch_intersections_host on its sketches."""
-    import os
-
+    """The plasmid-rich configuration (264 contigs): compress (287 M
+    windows, so streamed; once more in memory, which must write the same
+    files), then cluster through the CLI with the default knob (auto, so
+    sketch distances, hashed on the card), with verify, and with exact
+    distances: 11 QC-pass clusters each time and the same partition. The
+    sketch runs' sketching seconds, their grid's CUDA-event ms and verify's
+    record are read from inside the CLI calls; each grid must equal
+    sketch_intersections_host on its sketches, and 8 contigs' sketches on
+    the card those on the CPU."""
     from autocycler_tpu_torch.commands import cluster as cluster_mod
     from autocycler_tpu_torch.ops import sketch
 
@@ -1060,9 +1410,20 @@ def phase_sketch(work: Path) -> None:
     compressed = run_cli("plasmid-rich compress",
                          ["compress", "-i", asm, "-a", out, "--kmer", "51"],
                          "sketch")
-    if compressed["launches"]["sortnet_pack_rank"] == 0:
-        raise AssertionError("[sketch] compress never launched the sort "
-                             "network")
+    check_streamed("sketch", "plasmid-rich compress", compressed)
+    in_memory = work / "plasmid_rich_in_memory"
+    os.environ["AUTOCYCLER_STREAM_KMERS"] = "off"
+    try:
+        run_cli("plasmid-rich compress, in memory",
+                ["compress", "-i", asm, "-a", in_memory, "--kmer", "51"],
+                "sketch")
+    finally:
+        os.environ.pop("AUTOCYCLER_STREAM_KMERS")
+    if not _same_files(out, in_memory):
+        raise AssertionError("[sketch] the streamed plasmid-rich compress "
+                             "differs from the in-memory one")
+    log("[sketch] streamed and in-memory plasmid-rich compress: the same "
+        "files, byte for byte")
     partitions, runs = {}, {}
     saved = os.environ.pop("AUTOCYCLER_SKETCH_DISTANCE", None)
     try:
@@ -1122,14 +1483,15 @@ def phase_sketch(work: Path) -> None:
         "real_values": int((S != sketch.SENTINEL).sum()),
         "cluster_distances_s": {m: r["stages"]["cluster/distances"]
                                 for m, r in runs.items()},
-        "sketch_matrix_host_s": {m: secs for m, (_, secs)
-                                 in zip(("auto", "verify"), hashing)},
-        "sketch_matrix_host_s_per_mbp": {
+        "sketch_matrix_s": {m: secs for m, (_, secs)
+                            in zip(("auto", "verify"), hashing)},
+        "sketch_matrix_s_per_mbp": {
             m: secs / (total / 1e6)
             for m, (_, secs) in zip(("auto", "verify"), hashing)},
-        # of which the hashing (k-mers, window minima, bottom s) proper;
-        # the rest rebuilds each contig from its graph path and encodes it
-        "sketch_from_codes_host_s": {
+        # of which the hashing (k-mers, window minima, bottom s) on the
+        # card, each call ending in a synchronising copy; the rest rebuilds
+        # each contig from its graph path and encodes it on the host
+        "sketch_from_codes_s": {
             m: sum(secs for _, secs in contig_hashes[i * n:(i + 1) * n])
             for i, m in enumerate(("auto", "verify"))},
         "grid": {"lookups": lookups,
@@ -1141,6 +1503,34 @@ def phase_sketch(work: Path) -> None:
                  "bound_by": max(bound, key=bound.get),
                  "plain_host_s": plain_s, "max_abs_err": err},
         "verify_record": records[1][0]}))
+    log(f"[sketch] sketch_from_codes on the card: "
+        f"{sum(secs for _, secs in contig_hashes[:n])} s for {n} contigs "
+        "in auto")
+    sketches_on_card_and_cpu(asm / "assembly_1.fasta")
+
+
+def sketches_on_card_and_cpu(fasta: Path) -> None:
+    """The first 8 contigs of one plasmid-rich assembly (its chromosome and
+    seven plasmids) sketched on the card and on the CPU, at the default
+    (k, w, s): the same sketches, exact."""
+    from autocycler_tpu_torch.ops import encode, sketch
+
+    k, w, s = sketch.sketch_params()
+    lines = fasta.read_text().splitlines()
+    n = 0
+    for header, seq in list(zip(lines[0::2], lines[1::2]))[:8]:
+        fwd, rc = encode.encode_both_strands(
+            np.frombuffer(seq.encode(), np.uint8))
+        got, want = (sketch.sketch_from_codes(
+            torch.from_numpy(np.ascontiguousarray(fwd)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(rc)).to(dev), k, w, s)
+            for dev in ("cuda", "cpu"))
+        if got[1] != want[1] or not torch.equal(got[0].cpu(), want[0]):
+            raise AssertionError(f"[sketch] {header}: the sketch on the card "
+                                 "differs from the CPU's")
+        n += 1
+    log(f"[sketch] {n} contigs' sketches (k={k}, w={w}, s={s}) on the card "
+        "equal the CPU's (exact)")
 
 
 def phase_grid():
@@ -1290,34 +1680,18 @@ def _time_sortnet_shape(label: str, codes, starts, k: int) -> dict:
     want = sortnet.pack_rank_plain(codes, starts, k)
     err = max(_max_err(a, b) for a, b in zip(got, want))
     del got, want
-    words = sortnet.pack_words_plain(codes, starts, k)
-    if len(words) == 2:
-        key = words[0].long() * 5**13 + words[1].long()
-        lib_label = "torch.sort(int64 key, stable=True), 1 call"
-
-        def library():
-            torch.sort(key, stable=True)
-    else:
-        lib_label = f"torch.sort LSD, {len(words)} stable calls + gathers"
-
-        def library():
-            order = torch.arange(n, device=codes.device)
-            for w in reversed(words):
-                _, perm = torch.sort(w[order], stable=True)
-                order = order[perm]
+    lib_label, library = _sortnet_library(codes, starts, k)
     shape = {
         "shape": label, "k": k, "n": n, "codes": len(codes),
         "ms": _time_ms(lambda: sortnet.pack_rank_cuda(codes, starts, k)),
         "plain_ms": _time_ms(lambda: sortnet.pack_rank_plain(codes, starts, k)),
         "library_ms": _time_ms(library), "library": lib_label,
-        # each input read once (codes, starts), each output written once
-        # (order, gid_sorted), over the memory rate
-        "bound_ms": (len(codes) + 4 * n + 8 * n) / HBM_BYTES_PER_S * 1e3,
+        "bound_ms": _sortnet_bound_ms(codes, starts, k),
         "max_abs_err": err,
         "partition": sortnet.partition_stats(codes, starts, k),
         "passes": sortnet_passes(codes, starts, k),
     }
-    del words
+    del library
     if k == 51:
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated()
@@ -1330,19 +1704,104 @@ def _time_sortnet_shape(label: str, codes, starts, k: int) -> dict:
     return shape
 
 
-def timing_sortnet(captured, dotplot_groupings):
-    """Per compress (the sums over its launches), and per launch at the
-    plasmid and chromosome dotplots' first pair."""
-    shapes = [_time_sortnet_shape(f"compress k={k}", codes, starts, k)
-              for codes, starts, k in captured]
-    pairs = [_time_sortnet_shape(label, *inputs)
-             for label, inputs in dotplot_groupings.items()]
-    return {"ms": sum(s["ms"] for s in shapes),
-            "plain_ms": sum(s["plain_ms"] for s in shapes),
-            "bound_ms": sum(s["bound_ms"] for s in shapes), "bound_by": "bytes",
-            "library_ms": sum(s["library_ms"] for s in shapes),
-            "max_abs_err": max(s["max_abs_err"] for s in shapes + pairs),
-            "shapes": shapes + pairs}
+def _sortnet_library(codes, starts, k: int):
+    """The grouping's PyTorch yardstick at one shape, from pre-packed
+    words: one int64 torch.sort at two words, else one stable sort and
+    gather per word, least significant first. Returns (label, call)."""
+    from autocycler_tpu_torch.ops import sortnet
+
+    words = sortnet.pack_words_plain(codes, starts, k)
+    if len(words) == 2:
+        key = words[0].long() * 5**13 + words[1].long()
+        return "torch.sort(int64 key, stable=True), 1 call", \
+            lambda: torch.sort(key, stable=True)
+
+    def library():
+        order = torch.arange(len(starts), device=codes.device)
+        for w in reversed(words):
+            _, perm = torch.sort(w[order], stable=True)
+            order = order[perm]
+    return f"torch.sort LSD, {len(words)} stable calls + gathers", library
+
+
+def _sortnet_bound_ms(codes, starts, k: int) -> float:
+    """Each input read once (the code bytes the windows cover, that is the
+    union of their k-byte ranges, and the int32 starts), each output written
+    once (int32 order and group ids), over the memory rate."""
+    n = len(starts)
+    if not n:
+        return 0.0
+    ordered = torch.sort(starts.long()).values
+    covered = min(len(codes), int(torch.clamp(
+        ordered[1:] - ordered[:-1], max=k).sum()) + k)
+    return (covered + 4 * n + 8 * n) / HBM_BYTES_PER_S * 1e3
+
+
+def _once_ms(fn):
+    """(fn(), its CUDA-event ms), one call."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _time_sortnet_bins(bins) -> dict:
+    """Every bin of the streamed compress, one call each after a warm-up on
+    the first: the kernels (the wrapper's call), the plain version and the
+    yardstick, summed over the bins, with the bins' sizes."""
+    from autocycler_tpu_torch.ops import sortnet
+
+    sortnet.pack_rank_cuda(*bins[0])
+    sortnet.pack_rank_plain(*bins[0])
+    sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    err = 0
+    for codes, starts, k in bins:
+        got, ms = _once_ms(lambda: sortnet.pack_rank_cuda(codes, starts, k))
+        want, plain_ms = _once_ms(
+            lambda: sortnet.pack_rank_plain(codes, starts, k))
+        err = max(err, *(_max_err(a, b) for a, b in zip(got, want)))
+        del got, want
+        lib_label, library = _sortnet_library(codes, starts, k)
+        _, library_ms = _once_ms(library)
+        del library
+        for key, value in (("ms", ms), ("plain_ms", plain_ms),
+                           ("library_ms", library_ms),
+                           ("bound_ms", _sortnet_bound_ms(codes, starts, k))):
+            sums[key] += value
+    sizes = sorted(len(starts) for _, starts, _ in bins)
+    shape = {"shape": f"compress stream bins k={bins[0][2]}",
+             "bins": len(bins), "n_total": sum(sizes), "n_min": sizes[0],
+             "n_median": sizes[len(sizes) // 2], "n_max": sizes[-1], **sums,
+             "library": lib_label + " a bin", "max_abs_err": err}
+    log(f"[timing] sortnet_pack_rank {json.dumps(shape)}")
+    return shape
+
+
+def timing_sortnet(compress_groupings, n_bins: int, in_memory,
+                   dotplot_groupings):
+    """Per streamed compress (the sums over its launches: end repair, the
+    bins, the merge, the gram grouping), and per launch at the in-memory
+    k=51 shape and the plasmid and chromosome dotplots' first pair."""
+    repair, *bins, merge, gram = compress_groupings
+    if len(bins) != n_bins:
+        raise AssertionError(f"[timing] {len(bins)} bin groupings kept for "
+                             f"{n_bins} bins")
+    compress = [_time_sortnet_shape("compress end repair k=25", *repair),
+                _time_sortnet_bins(bins),
+                _time_sortnet_shape("compress stream merge k=51", *merge),
+                _time_sortnet_shape("compress gram grouping k=50", *gram)]
+    others = [_time_sortnet_shape("compress in memory k=51", *in_memory)]
+    others += [_time_sortnet_shape(label, *inputs)
+               for label, inputs in dotplot_groupings.items()]
+    return {**{key: sum(s[key] for s in compress) for key in
+               ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "bytes",
+            "max_abs_err": max(s["max_abs_err"] for s in compress + others),
+            "shapes": compress + others}
 
 
 def _grid_bytes_ms(a, b, ta, tb) -> float:
@@ -1451,11 +1910,13 @@ def timing_match_grid_mxu(a, b, k: int, tile: int):
             "shapes": shapes}
 
 
-def phase_timing(paths, captured, plasmid_pair, dotplot_groupings,
+def phase_timing(paths, groupings, plasmid_pair, dotplot_groupings,
                  grid_words):
+    """``groupings`` is (the streamed compress's groupings, its bin count,
+    the in-memory k=51 grouping)."""
     a, b = grid_words
     timed = {
-        "sortnet_pack_rank": (timing_sortnet(captured, dotplot_groupings),
+        "sortnet_pack_rank": (timing_sortnet(*groupings, dotplot_groupings),
                               "compress"),
         "dotplot_match_grid": (timing_match_grid([
             ("plasmid pair (dotplot --grid-mode device)", *plasmid_pair),
@@ -1472,6 +1933,13 @@ def phase_timing(paths, captured, plasmid_pair, dotplot_groupings,
     return rows
 
 
+@contextlib.contextmanager
+def _phase(name: str):
+    t0 = time.perf_counter()
+    yield
+    log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1483,15 +1951,25 @@ def main() -> int:
                          text=True, check=True).stdout.strip()
     log(f"[device] {smi}")
     log(f"[device] torch {torch.__version__}, CUDA {torch.version.cuda}")
-    phase_build()
-    phase_kernels()
+    with _phase("build"):
+        phase_build()
+    with _phase("kernels"):
+        phase_kernels()
     with tempfile.TemporaryDirectory() as td:
-        paths, captured, plasmid_pair, dotplot_groupings = phase_main(Path(td))
-        phase_handoff(Path(td))
-        phase_sketch(Path(td))
-    paths["grid"], grid_words = phase_grid()
-    rows = phase_timing(paths, captured, plasmid_pair, dotplot_groupings,
-                        grid_words)
+        with _phase("main"):
+            paths, compressed, plasmid_pair, dotplot_groupings = phase_main(
+                Path(td))
+        with _phase("handoff"):
+            compress_groupings, n_bins = phase_handoff(Path(td))
+        with _phase("stream"):
+            in_memory = phase_stream(Path(td), compressed)
+        with _phase("sketch"):
+            phase_sketch(Path(td))
+    with _phase("grid"):
+        paths["grid"], grid_words = phase_grid()
+    with _phase("timing"):
+        rows = phase_timing(paths, (compress_groupings, n_bins, in_memory),
+                            plasmid_pair, dotplot_groupings, grid_words)
     if any(r["max_abs_err"] != 0 for r in rows):
         raise AssertionError("[timing] a kernel disagrees with its plain "
                              "version at the main path's shapes")

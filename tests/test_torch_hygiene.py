@@ -56,6 +56,12 @@ def test_port_runs_compress_without_jax(tmp_path):
         "combine(sk, sorted(sk.glob('clustering/qc_pass/*/5_final.gfa')))\n"
         "print('SKETCH', device.dp_summary('cluster_sketch_grid')"
         "['dispatches'])\n"
+        "os.environ['AUTOCYCLER_STREAM_KMERS'] = 'on'\n"
+        f"streamed = Path({str(tmp_path / 'streamed')!r})\n"
+        f"compress({str(asm)!r}, streamed, device='cpu')\n"
+        "print('STREAM', (streamed / 'input_assemblies.gfa').read_bytes()\n"
+        "      == (out / 'input_assemblies.gfa').read_bytes(),\n"
+        "      sorted(p.name for p in streamed.iterdir()))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'autocycler_tpu' or m.startswith('autocycler_tpu.')]\n"
         "print('LOADED', bad)\n")
@@ -67,6 +73,8 @@ def test_port_runs_compress_without_jax(tmp_path):
     assert res.returncode == 0, res.stderr[-2000:]
     assert "LOADED []" in res.stdout
     assert "SKETCH 1" in res.stdout
+    assert "STREAM True ['.stream', 'input_assemblies.gfa', " \
+        "'input_assemblies.yaml']" in res.stdout
     assert (tmp_path / "sketch/consensus_assembly.fasta").read_text().count(
         "circular=true") == 2
     assert (tmp_path / "recon" / "assembly_1.fasta").read_bytes() == \

@@ -1,7 +1,7 @@
 """The port's minimizer sketches and sketch distances against the JAX
 package's on the CPU, with tolerance 0: every compared value is an integer
-or the one shared float expression. Sketches and intersection counts are
-equal bit for bit; from 256 contigs on, cluster's default mode sketches, and
+or the one shared float expression. Sketches (hashed as torch ops on CPU
+tensors) and intersection counts are equal bit for bit; from 256 contigs on, cluster's default mode sketches, and
 the two packages' clustering files are byte-identical."""
 
 import contextlib
@@ -10,6 +10,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from autocycler_tpu.commands import cluster as jax_cluster_mod
 from autocycler_tpu.commands.cluster import cluster as jax_cluster
@@ -63,6 +64,14 @@ def _contigs(rng, window: int):
             "long": _ascii(rng, 20_000)}
 
 
+def _sketch(fwd, rc, k, w, s):
+    """The port's sketch of numpy strands, hashed on the CPU, as the JAX
+    package's (uint32 vector, m)."""
+    sketch, m = sk.sketch_from_codes(torch.from_numpy(fwd),
+                                     torch.from_numpy(rc), k, w, s)
+    return sketch.numpy().astype(np.uint32), m
+
+
 @pytest.mark.parametrize("k,w,s", [(21, 11, 1024), (27, 5, 64), (27, 11, 8),
                                    (4, 1, 16), (15, 5, 256), (11, 20, 1)])
 def test_sketch_from_codes_matches_jax(k, w, s):
@@ -71,7 +80,7 @@ def test_sketch_from_codes_matches_jax(k, w, s):
     for name, seq in contigs.items():
         fwd, rc = encode.encode_both_strands(seq)
         jfwd, jrc = jax_encode.encode_both_strands(seq)
-        sketch, m = sk.sketch_from_codes(fwd, rc, k, w, s)
+        sketch, m = _sketch(fwd, rc, k, w, s)
         want, want_m = jsk.sketch_from_codes(jfwd, jrc, k, w, s)
         assert m == want_m, name
         assert sketch.dtype == want.dtype == np.uint32
@@ -84,7 +93,7 @@ def test_sketch_from_codes_matches_jax(k, w, s):
     # s-truncation: a smaller s is the prefix of the larger sketch
     if s > 1:
         fwd, rc = encode.encode_both_strands(contigs["long"])
-        small, m_small = sk.sketch_from_codes(fwd, rc, k, w, s // 2)
+        small, m_small = _sketch(fwd, rc, k, w, s // 2)
         assert small.tobytes() == got["long"][0][:s // 2].tobytes()
         assert m_small == min(got["long"][1], s // 2)
 
@@ -115,7 +124,8 @@ def test_sketch_matrix_matches_jax_on_a_gfa_loaded_graph(tmp_path):
     (graph, seqs), (jgraph, jseqs) = _compressed_graphs(tmp_path)
     assert all(not s.forward_seq.size for s in seqs)   # rebuilt from paths
     for params in (None, (15, 5, 128)):
-        S, valid, ids = sk.sketch_matrix(graph, seqs, params=params)
+        S, valid, ids = sk.sketch_matrix(graph, seqs, params=params,
+                                         device="cpu")
         jS, jvalid, jids = jsk.sketch_matrix(jgraph, jseqs, params=params)
         assert S.tobytes() == jS.tobytes()
         assert valid.tobytes() == jvalid.tobytes()
