@@ -8,7 +8,9 @@ It imports neither jax nor the JAX package.
 
 Layering (bottom → top):
 
-- ``utils``    — I/O, logging, small helpers, substage timing
+- ``utils``    — I/O, logging, small helpers, stage timing, the worker
+                 pool, the warm-start cache, the subprocess runner
+- ``obs``      — the run record: spans, metrics, QC, provenance ledger
 - ``models``   — Sequence / Position / Unitig / UnitigGraph data model
 - ``device``   — device resolution, the kernels' launch counters and the
                  DPs' dispatch records
@@ -17,7 +19,8 @@ Layering (bottom → top):
                  the dotplot match grids (two match-grid kernels), the
                  trim and resolve alignment DPs (torch ops)
 - ``commands`` — the ported subcommands: compress, decompress, cluster,
-                 trim, resolve, combine, dotplot
+                 trim, resolve, combine, dotplot, and the host commands
+                 subsample, helper, table, gfa2fasta, clean
 - ``cli``      — argparse front-end
 """
 

@@ -28,10 +28,13 @@ from ..device import resolve_device
 from ..metrics import ClusteringMetrics, UntrimmedClusterMetrics
 from ..models import Sequence, UnitigGraph
 from ..models.simplify import merge_linear_paths
+from ..obs import ledger
+from ..obs import qc as obs_qc
 from ..ops.distance import pairwise_contig_distances
 from ..ops.sketch import sketch_contig_distances, sketch_params
 from ..utils import (format_float, load_file_lines, log, median, quit_with_error,
                      usize_division_rounded)
+from ..utils.cache import open_cache
 from ..utils.env import env_int, env_str
 from ..utils.timing import stage_timer
 
@@ -722,18 +725,20 @@ def resolve_distance_mode(n_contigs: int) -> str:
     return "sketch" if n_contigs >= threshold else "exact"
 
 
-def compute_distances(graph, sequences, device=None
+def compute_distances(graph, sequences, device=None, autocycler_dir=None
                       ) -> Tuple[Dict[Tuple[int, int], float], dict]:
     """The cluster distance dict plus a record ``{"mode", "sketch_s",
     "sketch_max_abs_error"?}``, as the JAX package's. Sketch mode replaces
     the exact contraction with bottom-s minimizer sketches and their
-    intersection grid on ``device`` (ops.sketch); 'verify' computes both,
-    returns the exact distances and records the largest difference."""
+    intersection grid on ``device`` (ops.sketch), the sketches kept in the
+    warm-start cache of ``autocycler_dir``; 'verify' computes both, returns
+    the exact distances and records the largest difference."""
     mode = resolve_distance_mode(len(sequences))
     record = {"mode": mode, "sketch_s": sketch_params()[2]}
     sketch = exact = None
     if mode in ("sketch", "verify"):
-        sketch = sketch_contig_distances(graph, sequences, device)
+        sketch = sketch_contig_distances(graph, sequences, device,
+                                         cache=open_cache(autocycler_dir))
     if mode in ("exact", "verify"):
         exact = pairwise_contig_distances(graph, sequences, device=device)
     if mode == "verify":
@@ -796,8 +801,12 @@ def cluster(autocycler_dir, cutoff: float = 0.2, min_assemblies: Optional[int] =
     with stage_timer("cluster/distances"):
         if precomputed_distances is not None:
             asym = precomputed_distances
+            distance_record = {"mode": "precomputed"}
         else:
-            asym, _ = compute_distances(graph, sequences, dev)
+            asym, distance_record = compute_distances(
+                graph, sequences, dev, autocycler_dir=autocycler_dir)
+        obs_qc.record("cluster_distance", contigs=len(sequences),
+                      **distance_record)
         save_distance_matrix(asym, sequences,
                              clustering_dir / "pairwise_distances.phylip")
 
@@ -818,6 +827,16 @@ def cluster(autocycler_dir, cutoff: float = 0.2, min_assemblies: Optional[int] =
         save_data_to_tsv(sequences, qc_results, clustering_dir / "clustering.tsv")
         clustering_metrics(sequences, qc_results).save_to_yaml(
             clustering_dir / "clustering.yaml")
+    obs_qc.cluster_qc(sequences, qc_results)
+    ledger.record_stage(
+        "cluster", inputs=[gfa],
+        outputs=[clustering_dir / "pairwise_distances.phylip",
+                 clustering_dir / "clustering.newick",
+                 clustering_dir / "clustering.tsv",
+                 clustering_dir / "clustering.yaml"]
+        + sorted(clustering_dir.glob("qc_*/cluster_*/1_untrimmed.gfa")),
+        **{f"distance_{key}": value
+           for key, value in distance_record.items()})
 
     log.section_header("Finished!")
     log.explanation("You can now run autocycler trim on each cluster.")

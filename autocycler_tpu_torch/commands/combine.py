@@ -16,6 +16,7 @@ from typing import List
 
 from ..metrics import CombineMetrics, ResolvedClusterDetails
 from ..models import UnitigGraph
+from ..obs import ledger, qc
 from ..utils import log, quit_with_error
 from ..utils.timing import substage
 
@@ -44,6 +45,9 @@ def combine(autocycler_dir, in_gfas: List) -> None:
     with substage("combine"):
         combine_clusters(in_gfas, combined_gfa, combined_fasta, metrics)
         metrics.save_to_yaml(combined_yaml)
+    qc.combine_qc(metrics)
+    ledger.record_stage("combine", inputs=in_gfas,
+                        outputs=[combined_gfa, combined_fasta, combined_yaml])
 
     log.section_header("Finished!")
     log.message(f"Combined graph: {combined_gfa}")

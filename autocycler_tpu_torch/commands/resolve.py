@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Set, Tuple
 from ..device import resolve_device
 from ..models import Sequence, Unitig, UnitigGraph, UnitigType
 from ..models.simplify import merge_linear_paths
+from ..obs import ledger, qc
 from ..ops.align import global_alignment_distance_batch
 from ..utils import (load_file_lines, log, quit_with_error, reverse_signed_path,
                      sign_at_end, sign_at_end_vec)
@@ -340,7 +341,7 @@ def resolve(cluster_dir, verbose: bool = False, device=None,
         bridges = create_bridges(graph, sequences, anchors, verbose, dev)
         bridge_count = len(bridges)
         bridge_depth = float(len(sequences))
-        determine_ambiguity(bridges)
+        conflicting = determine_ambiguity(bridges)
     print_bridges(bridges, verbose)
 
     log.section_header("Applying unique bridges")
@@ -373,6 +374,12 @@ def resolve(cluster_dir, verbose: bool = False, device=None,
 
         final_gfa = cluster_dir / "5_final.gfa"
         graph.save_gfa(final_gfa, [], use_other_colour=True)
+    qc.resolve_qc(cluster_dir.name, len(anchors), bridges, conflicting,
+                  cull_count)
+    ledger.record_stage("resolve", inputs=[trimmed_gfa],
+                        outputs=[cluster_dir / "3_bridged.gfa",
+                                 cluster_dir / "4_merged.gfa", final_gfa],
+                        cluster=cluster_dir.name)
     log.section_header("Finished!")
     log.message(f"Final consensus graph: {final_gfa}")
     log.message()

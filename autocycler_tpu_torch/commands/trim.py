@@ -27,10 +27,12 @@ from ..device import resolve_device
 from ..metrics import TrimmedClusterMetrics
 from ..models import Sequence, UnitigGraph
 from ..models.simplify import merge_linear_paths
+from ..obs import ledger, qc
 from ..ops.align import (GAP, AlignmentPiece, Weights, find_midpoint,
                          overlap_may_be_positive, overlap_tracebacks_batch)
 from ..utils import (check_threads, log, mad as mad_fn, median,
                      quit_with_error, reverse_signed_path)
+from ..utils.pool import pool_map
 from ..utils.timing import stage_timer
 
 TrimResult = Optional[Tuple[List[int], int]]
@@ -55,9 +57,10 @@ def overlap_screen(jobs, min_identity: float, max_unitigs: int,
 def trim(cluster_dir, min_identity: float = 0.75, max_unitigs: int = 5000,
          mad: float = 5.0, threads: int = 1, device=None, preloaded=None
          ) -> Tuple[UnitigGraph, List[Sequence]]:
-    """``threads`` is validated as in the reference and changes no output;
-    the overlap DPs run on ``device`` (CUDA unless the caller asks for the
-    CPU). ``preloaded`` is an optional (graph, sequences) pair handed over
+    """The overlap DPs run on ``device`` (CUDA unless the caller asks for
+    the CPU); ``threads`` runs the per-sequence host work that follows them
+    on that many pool threads, with the log kept in sequence order, so no
+    output byte depends on it. ``preloaded`` is an optional (graph, sequences) pair handed over
     in memory by ``cluster(collect_handoff=True)``, used in place of parsing
     1_untrimmed.gfa. Returns the trimmed (graph, sequences), which an
     in-process caller can hand to ``resolve(preloaded=...)``; 2_trimmed.gfa
@@ -95,6 +98,7 @@ def trim(cluster_dir, min_identity: float = 0.75, max_unitigs: int = 5000,
         # until choose_trim_type applies the results)
         all_paths = graph.get_unitig_paths_for_sequences(
             [s.id for s in sequences]) if max_unitigs else {}
+    orig_lengths = {s.id: s.length for s in sequences}
     with stage_timer("trim/overlaps"):
         paths = {seq_id: [n if s else -n for n, s in path]
                  for seq_id, path in all_paths.items()}
@@ -106,16 +110,30 @@ def trim(cluster_dir, min_identity: float = 0.75, max_unitigs: int = 5000,
             jobs[(seq_id, "hairpin_end")] = (rev, path, weights, False)
         alignments = overlap_screen(jobs, min_identity, max_unitigs, dev)
         start_end = trim_start_end_overlap(sequences, weights, max_unitigs,
-                                           paths, alignments)
+                                           paths, alignments, threads)
         hairpin = trim_hairpin_overlap(sequences, weights, max_unitigs, paths,
-                                       alignments, min_identity, dev)
+                                       alignments, min_identity, dev, threads)
+        # choose_trim_type's winner (start-end wins ties), so that QC
+        # records the trims that were applied
+        se_count = sum(r is not None for r in start_end)
+        hp_count = sum(r is not None for r in hairpin)
+        winner = start_end if se_count >= hp_count else hairpin
+        chosen = [(s.id, r if (se_count or hp_count) else None)
+                  for s, r in zip(sequences, winner)]
         sequences = choose_trim_type(start_end, hairpin, graph, sequences)
     with stage_timer("trim/outputs"):
+        pre_exclude_ids = {s.id for s in sequences}
         sequences = exclude_outliers_in_length(graph, sequences, mad)
+        excluded_ids = pre_exclude_ids - {s.id for s in sequences}
         clean_up_graph(graph, sequences)
         graph.save_gfa(trimmed_gfa, sequences)
         TrimmedClusterMetrics.new(
             [s.length for s in sequences]).save_to_yaml(trimmed_yaml)
+    qc.trim_qc(cluster_dir.name, orig_lengths, se_count, hp_count, chosen,
+               sequences, excluded_ids)
+    ledger.record_stage("trim", inputs=[untrimmed_gfa],
+                        outputs=[trimmed_gfa, trimmed_yaml],
+                        cluster=cluster_dir.name)
     log.section_header("Finished!")
     log.message(f"Unitig graph of trimmed sequences: {trimmed_gfa}")
     log.message()
@@ -124,7 +142,8 @@ def trim(cluster_dir, min_identity: float = 0.75, max_unitigs: int = 5000,
 
 def trim_start_end_overlap(sequences: List[Sequence], weights: Weights,
                            max_unitigs: int, paths: Dict[int, List[int]],
-                           alignments: Alignments) -> List[TrimResult]:
+                           alignments: Alignments, threads: int = 1
+                           ) -> List[TrimResult]:
     """Per-sequence circular start-end trimming (reference trim.rs:113-136).
     A max_unitigs of 0 disables trimming."""
     if max_unitigs == 0:
@@ -137,7 +156,7 @@ def trim_start_end_overlap(sequences: List[Sequence], weights: Weights,
             return None
         return trimmed, sum(weights[abs(u)] for u in trimmed)
 
-    results = [one(seq) for seq in sequences]
+    results = pool_map(one, sequences, threads)
     for seq, result in zip(sequences, results):
         if result is not None:
             log.message(f"{seq}: trimmed to {result[1]} bp")
@@ -150,15 +169,16 @@ def trim_start_end_overlap(sequences: List[Sequence], weights: Weights,
 def trim_hairpin_overlap(sequences: List[Sequence], weights: Weights,
                          max_unitigs: int, paths: Dict[int, List[int]],
                          alignments: Alignments, min_identity: float,
-                         device) -> List[TrimResult]:
+                         device, threads: int = 1) -> List[TrimResult]:
     """Per-sequence hairpin trimming at both path ends (reference
     trim.rs:139-186). The hairpin-end jobs of the paths whose start was
     trimmed run in a second device round."""
     if max_unitigs == 0:
         return [None] * len(sequences)
-    trimmed_starts = [trim_path_hairpin_start(
-        paths[seq.id], alignments[(seq.id, "hairpin_start")])
-        for seq in sequences]
+    trimmed_starts = pool_map(
+        lambda seq: trim_path_hairpin_start(
+            paths[seq.id], alignments[(seq.id, "hairpin_start")]),
+        sequences, threads)
     # the first round's hairpin_end DP ran on the ORIGINAL path; it only
     # applies where hairpin_start left the path unchanged
     second_round = overlap_screen({
@@ -166,16 +186,20 @@ def trim_hairpin_overlap(sequences: List[Sequence], weights: Weights,
         for seq, p2 in zip(sequences, trimmed_starts) if p2 is not None},
         min_identity, max_unitigs, device)
 
-    results: List[TrimResult] = []
-    for seq, p2 in zip(sequences, trimmed_starts):
+    def end(pair):
+        seq, p2 = pair
         trimmed_start = p2 is not None
         if not trimmed_start:
             p2 = paths[seq.id]
         p3 = trim_path_hairpin_end(p2, (second_round if trimmed_start
                                         else alignments)[(seq.id, "hairpin_end")])
         trimmed_end = p3 is not None
-        if not trimmed_end:
-            p3 = p2
+        return (p3 if trimmed_end else p2), trimmed_start, trimmed_end
+
+    results: List[TrimResult] = []
+    for seq, (p3, trimmed_start, trimmed_end) in zip(
+            sequences, pool_map(end, list(zip(sequences, trimmed_starts)),
+                                 threads)):
         if not trimmed_start and not trimmed_end:
             results.append(None)
             log.message(f"{seq}: not trimmed")

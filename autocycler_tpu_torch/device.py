@@ -7,7 +7,10 @@ error, never a silent CPU run.
 Every hand-written kernel's wrapper launches it through :func:`launch` (or
 :func:`kernel_launch`, for a kernel of several passes), which counts the
 launch and puts CUDA events around it, so a run can show
-that its main path went through the kernels and how long they took.
+that its main path went through the kernels and how long they took. Each
+launch and each DP dispatch also opens a ``cat="device"`` span in the trace
+run (``obs.trace``), whose duration is the host's enqueue and whatever
+synchronisation the block itself does: no synchronise is added for it.
 
 The alignment DPs of trim and resolve and cluster's sketch intersection
 grid are torch ops on the device, not hand-written kernels. Each of their
@@ -24,6 +27,7 @@ from typing import Dict, List, Tuple
 
 import torch
 
+from .obs import trace
 from .utils import quit_with_error
 
 # kernel name -> launches since the last reset_counts()
@@ -57,7 +61,7 @@ def kernel_launch(name: str, device: torch.device):
     everything enqueued on the current stream of ``device`` inside the
     block (a kernel made of several passes and their bookkeeping is one
     launch). Yields the stream's handle for the C entry points."""
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), trace.span(name, cat="device"):
         stream = torch.cuda.current_stream()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -95,9 +99,10 @@ def dp_dispatch(name: str, device: torch.device, **shape):
     record = dict(shape)
     dp_dispatches[name].append(record)
     if device.type != "cuda":
-        yield
+        with trace.span(name, cat="device"):
+            yield
         return
-    with torch.cuda.device(device):
+    with torch.cuda.device(device), trace.span(name, cat="device"):
         stream = torch.cuda.current_stream()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)

@@ -3,7 +3,8 @@
 Parity target: reference metrics.rs:24-273 — one dataclass per pipeline stage
 and a save_to_yaml helper. YAML is emitted without external dependencies (the
 structures are simple: scalars, lists, nested records). The port carries the
-metrics of its ported stages: compress, cluster, trim and combine.
+metrics of its ported stages: subsample, compress, cluster, trim and
+combine.
 """
 
 from __future__ import annotations
@@ -59,6 +60,42 @@ class MetricsBase:
     def save_to_yaml(self, filename) -> None:
         with open(filename, "w") as f:
             f.write("\n".join(_to_yaml(self)) + "\n")
+
+    @classmethod
+    def get_field_names(cls) -> List[str]:
+        return sorted(f.name for f in dataclasses.fields(cls))
+
+
+@dataclass
+class ReadSetDetails(MetricsBase):
+    count: int = 0
+    bases: int = 0
+    n50: int = 0
+
+    @classmethod
+    def from_sorted_lengths(cls, sorted_read_lengths: List[int]) -> "ReadSetDetails":
+        """N50 over lengths sorted descending (reference metrics.rs:43-60)."""
+        bases = sum(sorted_read_lengths)
+        target = bases // 2
+        running, n50 = 0, 0
+        for length in sorted_read_lengths:
+            running += length
+            if running >= target:
+                n50 = length
+                break
+        return cls(count=len(sorted_read_lengths), bases=bases, n50=n50)
+
+
+@dataclass
+class SubsampleMetrics(MetricsBase):
+    input_read_count: int = 0
+    input_read_bases: int = 0
+    input_read_n50: int = 0
+    # which shuffle made the read partition: "rust-stdrng-0.9" is the
+    # reference's own for the same seed (utils/rust_rand.py);
+    # "python-fisher-yates" is the fallback when its self-test fails
+    shuffle: str = ""
+    output_reads: List[ReadSetDetails] = field(default_factory=list)
 
 
 @dataclass

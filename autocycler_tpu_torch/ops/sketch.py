@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from ..device import dp_dispatch, resolve_device
+from ..utils.cache import content_hash
 from ..utils.env import env_int
 from .encode import encode_both_strands
 
@@ -198,13 +199,19 @@ def _contig_forward_bytes(seq, recon) -> np.ndarray:
 
 def sketch_matrix(graph, sequences,
                   params: Optional[Tuple[int, int, int]] = None,
-                  device=None) -> Tuple[np.ndarray, np.ndarray, List[int]]:
+                  device=None, cache=None
+                  ) -> Tuple[np.ndarray, np.ndarray, List[int]]:
     """The stacked ``(n_contigs, s)`` uint32 sketch matrix, the count of
     real values in each row (int64) and the sequence ids, in ``sequences``
     order. Contigs loaded from a GFA are rebuilt from their graph paths and
     encoded on the host; each contig's strands are then hashed on ``device``
     (CUDA unless the caller asks for the CPU), and the matrix comes back in
-    one copy."""
+    one copy.
+
+    ``cache`` (a utils.cache.EncodeCache or None) keeps each contig's
+    sketch under the sha256 of its forward bytes plus (k, w, s), as the JAX
+    package's does: a hit skips the contig's hashing, and any byte or
+    parameter change misses."""
     k, w, s = params if params is not None else sketch_params()
     dev = resolve_device(device)
     missing = [q.id for q in sequences if not q.forward_seq.size]
@@ -212,8 +219,17 @@ def sketch_matrix(graph, sequences,
     rows = torch.empty((len(sequences), s), dtype=torch.int64, device=dev)
     valid = np.zeros(len(sequences), np.int64)
     ids: List[int] = []
+    missed = {}          # row -> content key, for the rows to store
     for i, seq in enumerate(sequences):
         ids.append(seq.id)
+        if cache is not None:
+            key = content_hash(_contig_forward_bytes(seq, recon).tobytes())
+            hit = cache.load_sketch(key, k, w, s)
+            if hit is not None:
+                rows[i] = torch.from_numpy(hit[0].astype(np.int64))
+                valid[i] = hit[1]
+                continue
+            missed[i] = key
         if seq.forward_seq.size:
             fwd, rc = seq.encoded_strands()
         else:
@@ -221,7 +237,11 @@ def sketch_matrix(graph, sequences,
         rows[i], valid[i] = sketch_from_codes(
             torch.from_numpy(np.ascontiguousarray(fwd)).to(dev),
             torch.from_numpy(np.ascontiguousarray(rc)).to(dev), k, w, s)
-    return rows.cpu().numpy().astype(np.uint32), valid, ids
+    S = rows.cpu().numpy().astype(np.uint32)
+    if missed:
+        cache.store_sketches(k, w, s, [(key, S[i], int(valid[i]))
+                                       for i, key in missed.items()])
+    return S, valid, ids
 
 
 def sketch_intersections_host(S: np.ndarray) -> np.ndarray:
@@ -294,11 +314,13 @@ def sketch_distance_matrix(S: np.ndarray, valid: np.ndarray,
     return _containment_to_matrix(sketch_intersections(S, device), valid)
 
 
-def sketch_contig_distances(graph, sequences, device=None
+def sketch_contig_distances(graph, sequences, device=None, cache=None
                             ) -> Dict[Tuple[int, int], float]:
     """Sketch distances keyed by (seq_a.id, seq_b.id), shaped as
-    ops.distance.pairwise_contig_distances' dict."""
-    S, valid, ids = sketch_matrix(graph, sequences, device=device)
+    ops.distance.pairwise_contig_distances' dict; ``cache`` as
+    :func:`sketch_matrix` takes it."""
+    S, valid, ids = sketch_matrix(graph, sequences, device=device,
+                                  cache=cache)
     D = sketch_distance_matrix(S, valid, device)
     return {(ids[a], ids[b]): float(D[a, b])
             for a in range(len(ids)) for b in range(len(ids))}

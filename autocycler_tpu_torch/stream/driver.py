@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
+from ..obs import ledger
 from ..ops.sortnet import KERNEL
 from ..utils.pool import prefetch_iter
 from ..utils.resilience import SpillError
@@ -93,6 +94,17 @@ def stream_group_windows_stats(codes: torch.Tensor, seq_len: np.ndarray,
             summary = binner.close()
         rle_ratio = (summary["raw_bytes"] / summary["spill_bytes"]
                      if summary["spill_bytes"] else 0.0)
+        ledger.record_stage("stream-spill", bins=summary["bins"],
+                            n_bins=summary["n_bins"],
+                            records=summary["records"],
+                            spill_bytes=summary["spill_bytes"],
+                            disk_records=summary["disk_records"],
+                            record_format=summary["format"],
+                            rle_ratio=round(rle_ratio, 2),
+                            pipeline_depth=plan.pipeline_depth,
+                            workers=workers,
+                            sig_k=summary["sig_k"],
+                            mem_budget_mb=plan.mem_budget_bytes >> 20)
 
         # ---- pass 2: per-bin grouping, reads ahead of the sorts ----
         fmt = int((spill.read_manifest(run_dir) or {}).get("format", 1))

@@ -27,6 +27,17 @@ DEFAULTS = {
     "AUTOCYCLER_STREAM_PIPELINE": 2,
     # set: take --threads as the worker count, without the core clamp
     "AUTOCYCLER_GROUPING_EXECUTOR": "",
+    # the run record: a trace run dir, and a Prometheus dump at exit
+    "AUTOCYCLER_TRACE_DIR": None,
+    "AUTOCYCLER_METRICS": None,
+    # the warm-start cache: a shared dir (else <autocycler_dir>/.cache),
+    # its LRU byte budget (<= 0: no eviction), and the switch
+    "AUTOCYCLER_CACHE_DIR": None,
+    "AUTOCYCLER_CACHE_MAX_BYTES": 4 << 30,
+    "AUTOCYCLER_ENCODE_CACHE": True,
+    # helper's assembler subprocesses: timeout (s, unset: none) and retries
+    "AUTOCYCLER_SUBPROCESS_TIMEOUT": None,
+    "AUTOCYCLER_SUBPROCESS_RETRIES": 0,
 }
 
 
@@ -47,16 +58,24 @@ def env_bool(name: str, default: bool = None) -> bool:
 
 
 def env_int(name: str, default: int = None) -> int:
+    return _env_number(name, default, int, "int")
+
+
+def env_float(name: str, default: float = None) -> float:
+    return _env_number(name, default, float, "float")
+
+
+def _env_number(name: str, default, kind, kind_name: str):
     if default is None:
         default = DEFAULTS[name]
     raw = os.environ.get(name)
     if raw is None or not raw.strip():
         return default
     try:
-        return int(raw.strip())
+        return kind(raw.strip())
     except ValueError:
         if name not in _warned:
             _warned.add(name)
-            print(f"Warning: ignoring malformed int value {raw!r} for {name}; "
-                  f"using default {default!r}", file=sys.stderr)
+            print(f"Warning: ignoring malformed {kind_name} value {raw!r} "
+                  f"for {name}; using default {default!r}", file=sys.stderr)
         return default

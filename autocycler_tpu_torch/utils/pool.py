@@ -1,15 +1,16 @@
-"""The process-wide worker pool and the two ordered shapes the streamed
-k-mer grouping runs on it, as the JAX package's utils/pool.py has them: a
-depth-bounded serial lane (pass 1's disk appends) and a read-ahead iterator
-(pass 2's bin reads). Both keep their input order, so what they produce is
-the same at every depth and worker count."""
+"""The process-wide worker pool and the ordered shapes run on it, as the
+JAX package's utils/pool.py has them: an order-preserving map (compress's
+assembly loads, trim's per-sequence work), a depth-bounded serial lane (the
+streamed grouping's pass-1 disk appends) and a read-ahead iterator (its
+pass-2 bin reads). Each keeps its input order, so what it produces is the
+same at every depth and worker count."""
 
 from __future__ import annotations
 
 import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterator, Sequence
+from typing import Callable, Iterable, Iterator, List, Sequence
 
 _lock = threading.Lock()
 _executor = None
@@ -91,3 +92,12 @@ def prefetch_iter(fn: Callable, items: Sequence, workers: int,
     finally:
         for fut in pending:
             fut.cancel()
+
+
+def pool_map(fn: Callable, items: Iterable, workers: int) -> List:
+    """Order-preserving map over ``items`` on the shared executor; a plain
+    serial map when one worker (or one item) makes the pool pointless."""
+    items = list(items)
+    if workers <= 1 or len(items) <= 1:
+        return [fn(x) for x in items]
+    return list(get_executor(workers).map(fn, items))

@@ -1,14 +1,16 @@
-"""Wall-clock seconds per pipeline stage and per substage, in two
-registries as the JAX package keeps them.
+"""Wall-clock seconds per pipeline stage and per substage, kept in the
+metrics registry (``obs.metrics_registry``) as the JAX package's
+utils/timing.py keeps them, and traced as spans.
 
 A stage (``stage_timer``) is a step of a command under the JAX package's
 name, such as ``compress/build_graph`` or ``trim/overlaps``; a substage
 (``substage``) is a hot part inside one, such as ``k-mer grouping`` or
-``repair``. Both accumulate over the process until :func:`reset`. With
-``AUTOCYCLER_TIMINGS=1`` each stage prints its time and the substages that
-ran inside it to stderr. Each stage or substage that ends with a device
-result copied to the host has waited for its device work, so its wall time
-includes that work.
+``repair``. Both accumulate over the process until :func:`reset`, and each
+opens a span (``cat="stage"`` or ``"substage"``) in the trace run when one
+is active. With ``AUTOCYCLER_TIMINGS=1`` each stage prints its time and the
+substages that ran inside it to stderr. Each stage or substage that ends
+with a device result copied to the host has waited for its device work, so
+its wall time includes that work.
 """
 
 from __future__ import annotations
@@ -17,29 +19,35 @@ import contextlib
 import time
 from typing import Dict
 
+from ..obs import metrics_registry, trace
 from . import log
 from .env import env_bool
 from .misc import format_duration
 
-# name -> summed wall seconds since the last reset()
-_stages: Dict[str, float] = {}
-_substages: Dict[str, float] = {}
+# metric names, the JAX package's
+STAGE_SECONDS = "autocycler_stage_seconds_total"
+STAGE_LATENCY_HIST = "autocycler_stage_latency_seconds"
+SUBSTAGE_SECONDS = "autocycler_substage_seconds_total"
 
 
 @contextlib.contextmanager
 def substage(name: str):
-    """Times one substage; several entries of one name add up."""
+    """Times one substage; several entries of one name add up. Thread-safe:
+    concurrent workers each add their own elapsed time."""
     start = time.perf_counter()
     try:
-        yield
+        with trace.span(name, cat="substage"):
+            yield
     finally:
-        _substages[name] = _substages.get(name, 0.0) + \
-            time.perf_counter() - start
+        metrics_registry.counter_inc(
+            SUBSTAGE_SECONDS, time.perf_counter() - start,
+            help="cumulative seconds per hot-kernel sub-stage",
+            substage=name)
 
 
 def substage_snapshot() -> Dict[str, float]:
     """Copy of the summed seconds per substage so far."""
-    return dict(_substages)
+    return metrics_registry.registry().labeled(SUBSTAGE_SECONDS, "substage")
 
 
 def substage_deltas(before: Dict[str, float], digits: int = 3
@@ -47,7 +55,7 @@ def substage_deltas(before: Dict[str, float], digits: int = 3
     """Substage seconds added since ``before`` (a snapshot), rounded to
     ``digits``, leaving out those that round to zero."""
     out = {}
-    for name, total in _substages.items():
+    for name, total in substage_snapshot().items():
         delta = round(total - before.get(name, 0.0), digits)
         if delta > 0:
             out[name] = delta
@@ -56,7 +64,7 @@ def substage_deltas(before: Dict[str, float], digits: int = 3
 
 def stage_seconds() -> Dict[str, float]:
     """Copy of the summed wall seconds per stage so far."""
-    return dict(_stages)
+    return metrics_registry.registry().labeled(STAGE_SECONDS, "stage")
 
 
 @contextlib.contextmanager
@@ -66,10 +74,17 @@ def stage_timer(name: str):
     before = substage_snapshot()
     start = time.perf_counter()
     try:
-        yield
+        with trace.span(name, cat="stage"):
+            yield
     finally:
         elapsed = time.perf_counter() - start
-        _stages[name] = _stages.get(name, 0.0) + elapsed
+        reg = metrics_registry.registry()
+        reg.counter_inc(STAGE_SECONDS, elapsed,
+                        help="cumulative wall seconds per pipeline stage",
+                        stage=name)
+        reg.observe(STAGE_LATENCY_HIST, elapsed,
+                    help="per-stage wall latency distribution",
+                    buckets=metrics_registry.SECONDS_BUCKETS, stage=name)
         if env_bool("AUTOCYCLER_TIMINGS", False):
             log.message(f"[timing] {name}: {format_duration(elapsed)}")
             for sub, secs in substage_deltas(before).items():
@@ -78,6 +93,6 @@ def stage_timer(name: str):
 
 
 def reset() -> None:
-    """Clears both registries."""
-    _stages.clear()
-    _substages.clear()
+    """Clears the metrics registry: the stage and substage seconds and
+    every other count in it (cache events, QC gauges)."""
+    metrics_registry.reset()

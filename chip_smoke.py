@@ -40,7 +40,24 @@ Phases (any failure exits non-zero, and the result lines are not printed):
              inputs (start-end overlaps; a hairpin at both ends) also go
              through compress, cluster, dotplot, trim, resolve and combine
              on the card and on the CPU (the kernels' plain versions),
-             which must write the same bytes.
+             which must write the same bytes. The headline compress is
+             cold and writes the JAX package's tree, its .cache holding 24
+             parse entries and the repair entry.
+   warm    — the headline compress once more through the CLI into a fresh
+             directory, AUTOCYCLER_CACHE_DIR at [main]'s .cache and
+             AUTOCYCLER_TRACE_DIR set: [main]'s GFA and YAML, 24 parse hits,
+             1 repair hit, no miss, no end-repair grouping, no degrade; the
+             ledger's sha256s equal the inputs' and outputs', its QC the
+             GFA's unitig count, length and N50, its stage spans the stage
+             timers (5 %), and the top-level span carries the device bytes;
+             the warm compress's device peak must be below the cold one's.
+             (At the end of [sketch], its auto cluster once more: every
+             sketch from the cache, the cold run's files.)
+   tools   — the small input's host commands through the CLI: subsample
+             (StdRng shuffle), table, gfa2fasta, clean --remove and
+             --cache, helper flye with a stub on PATH and helper raven
+             without one (exit 1); then the small pipeline traced, one run
+             dir a command, each with its five files.
    handoff — the headline again in one process on the card, stages
              handing their graphs over in memory (cluster(collect_handoff=
              True), trim and resolve with preloaded=...), the collector off:
@@ -58,7 +75,8 @@ Phases (any failure exits non-zero, and the result lines are not printed):
              13): compress (streamed, and once more in memory: the same
              files), then cluster with the default knob (sketch
              distances, hashed on the card), with verify and with exact
-             distances, 11 QC-pass clusters and one partition in all three;
+             distances (verify with the cache off, so that it sketches
+             cold), 11 QC-pass clusters and one partition in all three;
              then the sketch intersection grid on the card against its
              host version, and 8 contigs' sketches on the card against the
              CPU's, exact.
@@ -585,11 +603,15 @@ def kernels_pm1_edges() -> None:
 
 
 def _same_files(a: Path, b: Path) -> bool:
-    """The same files, byte for byte, in the two directory trees."""
-    names = sorted(str(p.relative_to(a)) for p in a.rglob("*") if p.is_file())
-    return (names == sorted(str(p.relative_to(b)) for p in b.rglob("*")
-                            if p.is_file())
-            and all((a / n).read_bytes() == (b / n).read_bytes() for n in names))
+    """The same files, byte for byte, in the two directory trees, leaving
+    out the warm-start cache (``.cache``), which [main] and [warm] check
+    apart: its entries' zip members carry their write time."""
+    def names(root):
+        return sorted(str(p.relative_to(root)) for p in root.rglob("*")
+                      if p.is_file()
+                      and ".cache" not in p.relative_to(root).parts)
+    return names(a) == names(b) and all(
+        (a / n).read_bytes() == (b / n).read_bytes() for n in names(a))
 
 
 def append_start_overlaps(asm_dir: Path, rng, chromosome_range,
@@ -699,15 +721,8 @@ def phase_main(work: Path):
         f"{time.perf_counter() - t0:.3f} s: {HEADLINE}")
 
     out = work / "out"
-    compressed = run_cli("compress", ["compress", "-i", asm, "-a", out,
-                                      "--kmer", "51"])
+    compressed = compress_cold(asm, out)
     launches = compressed["launches"]
-    compressed["stream"] = check_streamed("main", "compress", compressed)
-    if sorted(p.name for p in out.iterdir()) != [
-            ".stream", "input_assemblies.gfa", "input_assemblies.yaml"] or \
-            list((out / ".stream").iterdir()):
-        raise AssertionError("[main] compress left another tree than the "
-                             "JAX package's streamed compress")
 
     stderr = io.StringIO()
     recon = work / "recon"
@@ -733,6 +748,43 @@ def phase_main(work: Path):
     overlap_configuration(work, replicons)
     return ({"compress": launches, **paths}, compressed, plasmid_pair,
             dotplot_groupings)
+
+
+def compress_cold(asm: Path, out: Path) -> dict:
+    """The headline compress through the CLI into a fresh directory, cold:
+    it must stream, and leave the JAX package's tree, its .cache holding
+    the 24 parse entries and the repair entry. Also records what it pays to
+    key and fill the cache: seconds summed over the loader threads that
+    hash and store at once."""
+    from autocycler_tpu_torch.commands import compress as compress_mod
+    from autocycler_tpu_torch.utils import cache
+
+    with _recorded(compress_mod, "content_hash", lambda a, r: None) as hashes, \
+            _recorded(cache.EncodeCache, "store_parsed",
+                      lambda a, r: None) as parse_stores, \
+            _recorded(cache.EncodeCache, "store_repair_ends",
+                      lambda a, r: None) as repair_stores:
+        compressed = run_cli("compress", ["compress", "-i", asm, "-a", out,
+                                          "--kmer", "51"])
+    compressed["cache_store_s"] = {
+        name: sum(secs for _, secs in calls) for name, calls in (
+            ("content_hash", hashes), ("store_parsed", parse_stores),
+            ("store_repair_ends", repair_stores))}
+    compressed["stream"] = check_streamed("main", "compress", compressed)
+    entries = sorted(p.name for p in (out / ".cache").iterdir())
+    if sorted(p.name for p in out.iterdir()) != [
+            ".cache", ".stream", "input_assemblies.gfa",
+            "input_assemblies.yaml"] or list((out / ".stream").iterdir()) or \
+            [e[:4] for e in entries] != ["asm-"] * 24 + ["repa"]:
+        raise AssertionError("[main] compress left another tree than the "
+                             "JAX package's streamed compress: "
+                             f"{sorted(p.name for p in out.iterdir())}, "
+                             f".cache {entries}")
+    log(f"[main] compress wrote .cache: {len(entries)} entries "
+        f"({sum((out / '.cache' / e).stat().st_size for e in entries)} B); "
+        "seconds to hash and store them, summed over the loader threads: "
+        f"{json.dumps(compressed['cache_store_s'])}")
+    return compressed
 
 
 def headline_replicons():
@@ -1332,6 +1384,342 @@ def phase_stream(work: Path, streamed: dict):
     return k51[0]
 
 
+def _file_hashes(root: Path) -> dict:
+    """{path relative to root: sha256} of every file under root."""
+    import hashlib
+    return {str(p.relative_to(root)): hashlib.sha256(p.read_bytes()).hexdigest()
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def _gfa_qc(gfa: Path) -> dict:
+    """Unitig count, total length and N50 of a GFA's S lines, computed
+    here without the package."""
+    lengths = []
+    with open(gfa) as f:
+        for line in f:
+            if line.startswith("S\t"):
+                lengths.append(len(line.split("\t", 3)[2]))
+    lengths.sort(reverse=True)
+    total, running, n50 = sum(lengths), 0, 0
+    for length in lengths:
+        running += length
+        if 2 * running >= total:
+            n50 = length
+            break
+    return {"unitigs": len(lengths), "total_bp": total, "n50_bp": n50}
+
+
+def _trace_records(run_dir: Path):
+    return [json.loads(line) for line in
+            (run_dir / "trace.jsonl").read_text().splitlines() if line]
+
+
+RUN_FILES = ("trace.jsonl", "metrics.json", "metrics.prom", "qc_report.json",
+             "ledger.json")
+
+
+def phase_warm(work: Path, cold: dict) -> None:
+    """[main]'s headline compress once more through the CLI into a fresh
+    directory, warm: AUTOCYCLER_CACHE_DIR points at [main]'s .cache, and
+    AUTOCYCLER_TRACE_DIR at a run dir. Its GFA and YAML must equal [main]'s;
+    it must hit the 24 parse entries and the repair entry, miss none, and
+    launch no end-repair grouping (k // 2 = 25) but still build its graph on
+    the card, streamed; its ledger's input and output sha256s must equal
+    the files', its QC the GFA's own counts, its stage spans the stage
+    timers (5 %), and its top-level span must carry the device bytes."""
+    import hashlib
+
+    from autocycler_tpu_torch.utils import cache
+
+    asm, main_out = work / "headline" / "assemblies", work / "out"
+    out, run_dir = work / "warm", work / "warm_trace"
+    os.environ["AUTOCYCLER_CACHE_DIR"] = str(main_out / ".cache")
+    os.environ["AUTOCYCLER_TRACE_DIR"] = str(run_dir)
+    try:
+        with groupings_launched(k=25) as repairs:
+            warm = run_cli("headline compress, warm",
+                           ["compress", "-i", asm, "-a", out, "--kmer", "51"],
+                           "warm")
+        stats = cache.cache_stats()
+    finally:
+        os.environ.pop("AUTOCYCLER_CACHE_DIR")
+        os.environ.pop("AUTOCYCLER_TRACE_DIR")
+    stream = check_streamed("warm", "compress", warm)
+    for name in ("input_assemblies.gfa", "input_assemblies.yaml"):
+        if (out / name).read_bytes() != (main_out / name).read_bytes():
+            raise AssertionError(f"[warm] {name} differs from [main]'s")
+    if stats != {"parse_hits": 24, "parse_misses": 0, "repair_hits": 1,
+                 "repair_misses": 0}:
+        raise AssertionError(f"[warm] cache events {stats}")
+    if repairs or warm["launches"]["sortnet_pack_rank"] != stream["bins"] + 2:
+        raise AssertionError(
+            f"[warm] {len(repairs)} end-repair groupings, "
+            f"{warm['launches']['sortnet_pack_rank']} launches for "
+            f"{stream['bins']} bins (expected the bins, the merge and the "
+            "grams)")
+    if sorted(p.name for p in run_dir.iterdir() if p.name in RUN_FILES) != \
+            sorted(RUN_FILES):
+        raise AssertionError(f"[warm] run dir: {sorted(run_dir.iterdir())}")
+    ledger = json.loads((run_dir / "ledger.json").read_text())
+    fastas = sorted(asm.glob("*.fasta"))
+    if sorted(ledger["inputs"]) != [str(f) for f in fastas] or any(
+            ledger["inputs"][str(f)]["sha256"] !=
+            hashlib.sha256(f.read_bytes()).hexdigest() for f in fastas):
+        raise AssertionError("[warm] the ledger's input sha256s differ from "
+                             "the FASTAs'")
+    stage = next(s for s in ledger["stages"] if s["stage"] == "compress")
+    on_disk = {str(out / n): hashlib.sha256((out / n).read_bytes()).hexdigest()
+               for n in ("input_assemblies.gfa", "input_assemblies.yaml")}
+    if {p: d["sha256"] for p, d in stage["outputs"].items()} != on_disk:
+        raise AssertionError("[warm] the ledger's compress outputs differ "
+                             "from the files on disk")
+    if ledger["caches"]["parse"] != {"hits": 24, "misses": 0} or \
+            ledger["caches"]["repair"] != {"hits": 1, "misses": 0}:
+        raise AssertionError(f"[warm] ledger caches {ledger['caches']}")
+    report = json.loads((run_dir / "qc_report.json").read_text())
+    entry = next(e for e in report["entries"] if e["stage"] == "compress")
+    gfa_qc = _gfa_qc(out / "input_assemblies.gfa")
+    if {k: entry["metrics"][k] for k in gfa_qc} != gfa_qc:
+        raise AssertionError(f"[warm] QC {entry['metrics']} against the "
+                             f"GFA's {gfa_qc}")
+    records = _trace_records(run_dir)
+    spans = {}
+    for r in records:
+        if r["type"] == "span" and r["cat"] == "stage":
+            spans[r["name"]] = spans.get(r["name"], 0.0) + r["dur"]
+    if set(spans) != set(warm["stages"]) or any(
+            abs(spans[n] - secs) > 0.05 * secs + 1e-3
+            for n, secs in warm["stages"].items()):
+        raise AssertionError(f"[warm] stage spans {spans} against the "
+                             f"timers {warm['stages']}")
+    top = next(r for r in records
+               if r["type"] == "span" and r["cat"] == "command")
+    if "device_bytes_in_use" not in top.get("mem", {}):
+        raise AssertionError(f"[warm] top-level span mem {top.get('mem')}")
+    device_spans = sum(1 for r in records
+                       if r["type"] == "span" and r["cat"] == "device")
+    log("[warm] headline compress, warm from [main]'s .cache, the same GFA "
+        "and YAML; 24 parse hits, 1 repair hit, 0 misses; no end-repair "
+        "grouping; ledger sha256s, QC and stage spans agree: " + json.dumps({
+            "wall_s": {"cold": cold["wall_s"], "warm": warm["wall_s"]},
+            "load_and_repair_s": {
+                label: run["stages"]["compress/load_and_repair"]
+                for label, run in (("cold", cold), ("warm", warm))},
+            "load_s": {label: run["substages"].get("load")
+                       for label, run in (("cold", cold), ("warm", warm))},
+            "repair_s": {label: run["substages"].get("repair")
+                         for label, run in (("cold", cold), ("warm", warm))},
+            "build_graph_s": {
+                label: run["stages"]["compress/build_graph"]
+                for label, run in (("cold", cold), ("warm", warm))},
+            "peak_device_bytes": {
+                label: run["peak_device_bytes"]
+                for label, run in (("cold", cold), ("warm", warm))},
+            "build_graph_peak_device_bytes": {
+                label: run["build_graph_peak_device_bytes"]
+                for label, run in (("cold", cold), ("warm", warm))},
+            "grouping_launches": {
+                label: run["launches"]["sortnet_pack_rank"]
+                for label, run in (("cold", cold), ("warm", warm))},
+            "cold_cache_store_s": cold["cache_store_s"],
+            "trace": {"spans": len(records) - 2, "device_spans": device_spans,
+                      "top_mem": top["mem"]}}))
+    if warm["peak_device_bytes"] >= cold["peak_device_bytes"]:
+        raise AssertionError("[warm] the warm compress's device peak is not "
+                             "below the cold one's")
+
+
+def warm_sketch_cluster(out: Path, n_contigs: int, cold_files: dict,
+                        cold: dict, cold_sketch_s: float) -> None:
+    """[sketch]'s auto cluster once more on its directory: every contig's
+    sketch comes from the cache the cold auto run filled (264 hits, no
+    miss), and the files are the cold run's."""
+    from autocycler_tpu_torch.obs import metrics_registry
+    from autocycler_tpu_torch.ops import sketch
+    from autocycler_tpu_torch.utils import cache
+
+    with _recorded(sketch, "sketch_matrix", lambda a, r: None) as hashing, \
+            _recorded(sketch, "sketch_from_codes",
+                      lambda a, r: None) as contig_hashes, \
+            _recorded(cache, "_atomic_write", lambda a, r: None) as stores:
+        warm = run_cli("plasmid-rich cluster, auto, warm",
+                       ["cluster", "-a", out], "warm")
+    reg = metrics_registry.registry()
+    events = {e: int(reg.value(cache.CACHE_EVENTS, cache="sketch", event=e))
+              for e in ("hit", "miss")}
+    if events != {"hit": n_contigs, "miss": 0} or contig_hashes or stores:
+        raise AssertionError(f"[warm] sketch cache events {events}, "
+                             f"{len(contig_hashes)} contigs hashed, "
+                             f"{len(stores)} entries stored")
+    if _file_hashes(out / "clustering") != cold_files:
+        raise AssertionError("[warm] the warm sketch cluster's files differ "
+                             "from the cold auto run's")
+    log(f"[warm] plasmid-rich cluster, auto, warm: {n_contigs} sketch hits, "
+        "0 misses, the cold run's files: " + json.dumps({
+            "sketch_matrix_s": {"cold": cold_sketch_s,
+                                "warm": hashing[0][1]},
+            "cluster_distances_s": {
+                "cold": cold["stages"]["cluster/distances"],
+                "warm": warm["stages"]["cluster/distances"]},
+            "wall_s": {"cold": cold["wall_s"], "warm": warm["wall_s"]}}))
+
+
+FLYE_STUB = r"""#!/usr/bin/env bash
+out_dir=""
+while [[ $# -gt 0 ]]; do
+  case "$1" in
+    --out-dir) out_dir=$2; shift 2;;
+    *) shift;;
+  esac
+done
+mkdir -p "$out_dir"
+printf '>contig_1\nACGTACGTAC\n>contig_2\nGGGGCCCC\n' > "$out_dir/assembly.fasta"
+printf '#seq_name\tlength\tcov.\tcirc.\ncontig_1\t10\t30\tY\ncontig_2\t8\t4\tN\n' > "$out_dir/assembly_info.txt"
+printf 'log line\n' > "$out_dir/flye.log"
+"""
+
+
+def _cli_call(argv, env=None):
+    """One in-process CLI call with ``env`` set around it: (exit code,
+    stdout, stderr)."""
+    from autocycler_tpu_torch import cli
+
+    saved = {k: os.environ.get(k) for k in (env or {})}
+    os.environ.update(env or {})
+    out, err = io.StringIO(), io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli.main([str(a) for a in argv])
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    return rc, out.getvalue(), err.getvalue()
+
+
+def phase_tools(work: Path) -> None:
+    """The host commands of a user's pipeline on the small inputs, through
+    the CLI: subsample of a FASTQ drawn from a seed, table (the header, and
+    a row whose fields are the YAML values), gfa2fasta of a 5_final.gfa,
+    clean with --remove and with --cache, helper flye with a stub on PATH
+    and helper raven without one (exit 1, "Error:"); then the small
+    pipeline traced, one run dir a command, each with its run record."""
+    import yaml
+
+    t0 = time.perf_counter()
+    small = work / "small_cuda"
+    rng = np.random.default_rng(17)
+    reads = work / "tools_reads.fastq"
+    with open(reads, "w") as f:
+        for i in range(400):
+            seq = "".join("ACGT"[b] for b in rng.integers(0, 4,
+                                                          rng.integers(1000, 4000)))
+            f.write(f"@read_{i}\n{seq}\n+\n{'I' * len(seq)}\n")
+    rc, _, err = _cli_call(["subsample", "-r", reads, "-o", work / "subsets",
+                            "-g", "34k", "--min_read_depth", "10"])
+    subsets = sorted(p.name for p in (work / "subsets").iterdir())
+    if rc != 0 or subsets != [f"sample_0{i}.fastq" for i in range(1, 5)] + [
+            "subsample.yaml"] or "shuffle: rust-stdrng-0.9" not in \
+            (work / "subsets/subsample.yaml").read_text():
+        raise AssertionError(f"[tools] subsample: rc {rc}, {subsets}\n{err}")
+
+    rc_h, header, _ = _cli_call(["table"])
+    rc_r, row, _ = _cli_call(["table", "-a", small, "-n", "small"])
+    fields = dict(zip(header.rstrip("\n").split("\t"),
+                      row.rstrip("\n").split("\t")))
+    clustering = yaml.safe_load((small / "clustering/clustering.yaml").read_text())
+    consensus = yaml.safe_load((small / "consensus_assembly.yaml").read_text())
+    want = {"name": "small",
+            "pass_cluster_count": str(clustering["pass_cluster_count"]),
+            "fail_cluster_count": str(clustering["fail_cluster_count"]),
+            "consensus_assembly_bases":
+                str(consensus["consensus_assembly_bases"]),
+            "consensus_assembly_unitigs":
+                str(consensus["consensus_assembly_unitigs"]),
+            "consensus_assembly_fully_resolved":
+                str(consensus["consensus_assembly_fully_resolved"]).lower()}
+    if rc_h or rc_r or {k: fields.get(k) for k in want} != want:
+        raise AssertionError(f"[tools] table: {fields} against {want}")
+
+    final = sorted(small.glob("clustering/qc_pass/*/5_final.gfa"))[0]
+    rc, _, _ = _cli_call(["gfa2fasta", "-i", final, "-o", work / "final.fasta"])
+    fasta = (work / "final.fasta").read_text()
+    if rc or not fasta.startswith(">1 length=") or "circular=true" not in fasta:
+        raise AssertionError(f"[tools] gfa2fasta: rc {rc}, {fasta[:200]!r}")
+
+    consensus_gfa = small / "consensus_assembly.gfa"
+    rc, _, _ = _cli_call(["clean", "-i", consensus_gfa, "-o",
+                          work / "cleaned.gfa", "-r", "2"])
+    kept = [line for line in (work / "cleaned.gfa").read_text().splitlines()
+            if line.startswith("S\t")]
+    if rc or len(kept) != 1:
+        raise AssertionError(f"[tools] clean --remove: rc {rc}, {len(kept)} "
+                             "segments")
+    entries = len(list((small / ".cache").glob("*.npz")))
+    rc, _, err = _cli_call(["clean", "--cache", small])
+    if rc or list((small / ".cache").glob("*.npz")) or \
+            f"{entries} entries" not in err:
+        raise AssertionError(f"[tools] clean --cache: rc {rc}\n{err}")
+
+    bin_dir = work / "stub_bin"
+    bin_dir.mkdir()
+    (bin_dir / "flye").write_text(FLYE_STUB)
+    (bin_dir / "flye").chmod(0o755)
+    path = {"PATH": f"{bin_dir}{os.pathsep}{os.environ['PATH']}"}
+    rc, _, err = _cli_call(["helper", "flye", "-r", reads, "-o",
+                            work / "asm/flye_01", "-d", work / "flye_work"],
+                           path)
+    flye = (work / "asm/flye_01.fasta").read_text() \
+        if (work / "asm/flye_01.fasta").exists() else ""
+    if rc or flye != (">contig_1 circular=true depth=30\nACGTACGTAC\n"
+                      ">contig_2 depth=4\nGGGGCCCC\n"):
+        raise AssertionError(f"[tools] helper flye: rc {rc}, {flye!r}\n{err}")
+    rc, _, err = _cli_call(["helper", "raven", "-r", reads, "-o",
+                            work / "asm/raven_01"], path)
+    if rc != 1 or "Error: required program 'raven' not found" not in err:
+        raise AssertionError(f"[tools] helper raven: rc {rc}\n{err}")
+
+    asm, out, runs = work / "small" / "assemblies", work / "traced", \
+        work / "traced_runs"
+    steps = [("compress", ["compress", "-i", asm, "-a", out]),
+             ("cluster", ["cluster", "-a", out])]
+    rc, _, err = _cli_call(steps[0][1], {"AUTOCYCLER_TRACE_DIR":
+                                         str(runs / "compress")})
+    rc2, _, err2 = _cli_call(steps[1][1], {"AUTOCYCLER_TRACE_DIR":
+                                           str(runs / "cluster")})
+    if rc or rc2:
+        raise AssertionError(f"[tools] traced compress/cluster: {err}{err2}")
+    clusters = sorted((out / "clustering/qc_pass").iterdir())
+    for c in clusters:
+        steps += [(f"trim_{c.name}", ["trim", "-c", c]),
+                  (f"resolve_{c.name}", ["resolve", "-c", c])]
+    steps.append(("combine", ["combine", "-a", out, "-i",
+                              *[c / "5_final.gfa" for c in clusters]]))
+    for label, argv in steps[2:]:
+        rc, _, err = _cli_call(argv, {"AUTOCYCLER_TRACE_DIR": str(runs / label)})
+        if rc:
+            raise AssertionError(f"[tools] traced {label}: {err}")
+    for label, _ in steps:
+        have = {p.name for p in (runs / label).iterdir()}
+        report = json.loads((runs / label / "qc_report.json").read_text())
+        if not set(RUN_FILES) <= have or not report["entries"] or \
+                _trace_records(runs / label)[-1]["type"] != "finish":
+            raise AssertionError(f"[tools] traced {label}: {sorted(have)}")
+    traced = {n: h for n, h in _file_hashes(out).items()
+              if not n.startswith(".cache/")}
+    untraced = _file_hashes(small)
+    if any(untraced.get(n) != h for n, h in traced.items()):
+        raise AssertionError("[tools] the traced small pipeline's files "
+                             "differ from [main]'s untraced run")
+    log(f"[tools] subsample ({len(subsets) - 1} subsets, StdRng shuffle), "
+        "table, gfa2fasta, clean --remove and --cache, helper flye (stub) "
+        "and raven (missing: exit 1), and the small pipeline traced "
+        f"({len(steps)} run dirs, each with {', '.join(RUN_FILES)}): "
+        f"{time.perf_counter() - t0:.3f} s")
+
+
 def make_plasmid_rich(root: Path) -> Path:
     """PLASMID_RICH's assemblies: every replicon rotated in each assembly,
     the plasmids reverse-complemented in alternate assemblies (as
@@ -1437,8 +1825,13 @@ def phase_sketch(work: Path) -> None:
             for mode in ("auto", "verify", "exact"):
                 if mode != "auto":
                     os.environ["AUTOCYCLER_SKETCH_DISTANCE"] = mode
+                    # verify sketches cold: it reads none of the sketches
+                    # the auto run stored, which [warm] reads
+                    os.environ["AUTOCYCLER_ENCODE_CACHE"] = "0"
                 runs[mode] = run_cli(f"plasmid-rich cluster, {mode}",
                                      ["cluster", "-a", out], "sketch")
+                if mode == "auto":
+                    auto_files = _file_hashes(out / "clustering")
                 partitions[mode] = _tsv_partition(out / "clustering")
                 passing = len(list((out / "clustering" / "qc_pass").iterdir()))
                 grid = runs[mode]["dp"]["cluster_sketch_grid"]
@@ -1449,6 +1842,7 @@ def phase_sketch(work: Path) -> None:
                         "dispatches")
     finally:
         os.environ.pop("AUTOCYCLER_SKETCH_DISTANCE", None)
+        os.environ.pop("AUTOCYCLER_ENCODE_CACHE", None)
         if saved is not None:
             os.environ["AUTOCYCLER_SKETCH_DISTANCE"] = saved
     if len(partitions["auto"]) != 264 or \
@@ -1507,6 +1901,7 @@ def phase_sketch(work: Path) -> None:
         f"{sum(secs for _, secs in contig_hashes[:n])} s for {n} contigs "
         "in auto")
     sketches_on_card_and_cpu(asm / "assembly_1.fasta")
+    warm_sketch_cluster(out, n, auto_files, runs["auto"], hashing[0][1])
 
 
 def sketches_on_card_and_cpu(fasta: Path) -> None:
@@ -1959,6 +2354,10 @@ def main() -> int:
         with _phase("main"):
             paths, compressed, plasmid_pair, dotplot_groupings = phase_main(
                 Path(td))
+        with _phase("warm"):
+            phase_warm(Path(td), compressed)
+        with _phase("tools"):
+            phase_tools(Path(td))
         with _phase("handoff"):
             compress_groupings, n_bins = phase_handoff(Path(td))
         with _phase("stream"):

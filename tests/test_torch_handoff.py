@@ -25,6 +25,7 @@ from autocycler_tpu_torch.commands.compress import compress
 from autocycler_tpu_torch.commands.resolve import resolve
 from autocycler_tpu_torch.commands.trim import trim
 from autocycler_tpu_torch.models import UnitigGraph
+from autocycler_tpu_torch.obs import metrics_registry
 from autocycler_tpu_torch.ops.distance import pairwise_contig_distances
 from autocycler_tpu_torch.utils import timing
 
@@ -230,8 +231,9 @@ def test_substage_deltas():
     with timing.substage("a"):
         pass
     before = timing.substage_snapshot()
-    timing._substages["a"] += 0.25
-    timing._substages["b"] = 0.0004
+    metrics_registry.counter_inc(timing.SUBSTAGE_SECONDS, 0.25, substage="a")
+    metrics_registry.counter_inc(timing.SUBSTAGE_SECONDS, 0.0004,
+                                 substage="b")
     assert timing.substage_deltas(before) == {"a": 0.25}
     assert timing.substage_deltas(before, digits=4) == {"a": 0.25, "b": 0.0004}
     with timing.stage_timer("x"), timing.stage_timer("x"):

@@ -62,6 +62,38 @@ def test_port_runs_compress_without_jax(tmp_path):
         "print('STREAM', (streamed / 'input_assemblies.gfa').read_bytes()\n"
         "      == (out / 'input_assemblies.gfa').read_bytes(),\n"
         "      sorted(p.name for p in streamed.iterdir()))\n"
+        "from autocycler_tpu_torch import cli\n"
+        "from autocycler_tpu_torch.commands import compress as compress_mod\n"
+        "from autocycler_tpu_torch.utils import cache\n"
+        "os.environ['AUTOCYCLER_STREAM_KMERS'] = 'auto'\n"
+        "s0 = cache.cache_stats()\n"
+        f"compress({str(asm)!r}, out, device='cpu')\n"
+        "s1 = cache.cache_stats()\n"
+        "print('WARM', s1['parse_hits'] - s0['parse_hits'],\n"
+        "      s1['repair_hits'] - s0['repair_hits'],\n"
+        "      s1['parse_misses'] - s0['parse_misses'])\n"
+        "import torch\n"
+        "compress_mod.resolve_device = lambda dev=None: torch.device('cpu')\n"
+        f"tmp = Path({str(tmp_path)!r})\n"
+        "os.environ['AUTOCYCLER_TRACE_DIR'] = str(tmp / 'trace')\n"
+        "assert cli.main(['compress', '-i', "
+        f"{str(asm)!r}, '-a', str(tmp / 'traced')]) == 0\n"
+        "del os.environ['AUTOCYCLER_TRACE_DIR']\n"
+        "print('TRACED', sorted(p.name for p in (tmp / 'trace').iterdir()))\n"
+        "reads = tmp / 'reads.fastq'\n"
+        "reads.write_text(''.join(f'@r{i}\\n' + 'ACGT' * (50 + i) + '\\n+\\n'\n"
+        "                         + 'I' * (200 + 4 * i) + '\\n' for i in range(40)))\n"
+        "for argv in (['subsample', '-r', reads, '-o', tmp / 'subs', '-g', '1k',\n"
+        "              '--min_read_depth', '2'],\n"
+        "             ['table', '-a', out, '-n', 'x'],\n"
+        "             ['gfa2fasta', '-i', clusters[0] / '5_final.gfa',\n"
+        "              '-o', tmp / 'final.fasta'],\n"
+        "             ['clean', '-i', clusters[0] / '5_final.gfa',\n"
+        "              '-o', tmp / 'clean.gfa', '--cache', out]):\n"
+        "    assert cli.main([str(a) for a in argv]) == 0, argv\n"
+        "print('TOOLS', sorted(p.name for p in (tmp / 'subs').iterdir()),\n"
+        "      (tmp / 'final.fasta').is_file(), (tmp / 'clean.gfa').is_file(),\n"
+        "      sorted(p.name for p in (out / '.cache').iterdir()))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'autocycler_tpu' or m.startswith('autocycler_tpu.')]\n"
         "print('LOADED', bad)\n")
@@ -72,8 +104,14 @@ def test_port_runs_compress_without_jax(tmp_path):
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-2000:]
     assert "LOADED []" in res.stdout
+    assert "WARM 2 1 0" in res.stdout
+    assert "TRACED ['ledger.json', 'metrics.json', 'metrics.prom', " \
+        "'qc_report.json', 'trace.chrome.json', 'trace.jsonl']" in res.stdout
+    assert "TOOLS ['sample_01.fastq', 'sample_02.fastq', 'sample_03.fastq', " \
+        "'sample_04.fastq', 'subsample.yaml'] True True []" in res.stdout
+    assert "\nx\t" in res.stdout                   # table's row
     assert "SKETCH 1" in res.stdout
-    assert "STREAM True ['.stream', 'input_assemblies.gfa', " \
+    assert "STREAM True ['.cache', '.stream', 'input_assemblies.gfa', " \
         "'input_assemblies.yaml']" in res.stdout
     assert (tmp_path / "sketch/consensus_assembly.fasta").read_text().count(
         "circular=true") == 2

@@ -182,7 +182,8 @@ def test_default_dispatch_is_the_jax_threshold():
 def test_env_defaults_match_jax_knobs(monkeypatch):
     from autocycler_tpu.utils import knobs
     from autocycler_tpu_torch.utils import env
-    readers = {"str": env.env_str, "int": env.env_int, "bool": env.env_bool}
+    readers = {"str": env.env_str, "int": env.env_int, "bool": env.env_bool,
+               "float": env.env_float}
     for name, default in env.DEFAULTS.items():
         monkeypatch.delenv(name, raising=False)
         knob = knobs.KNOBS[name]
@@ -545,8 +546,6 @@ def test_compress_streamed_matches_jax_and_in_memory(monkeypatch, tmp_path,
                                                      k, threads, plan):
     asm = make_assemblies(tmp_path, n_assemblies=3, chromosome_len=4000,
                           plasmid_len=700, n_snps=3, seed=11)
-    # the JAX package's warm cache (not ported) goes outside its out dir
-    monkeypatch.setenv("AUTOCYCLER_CACHE_DIR", str(tmp_path / "jax_cache"))
     monkeypatch.setenv("AUTOCYCLER_STREAM_KMERS", "off")
     _quiet(compress, asm, tmp_path / "mem", k, threads=threads, device="cpu")
     monkeypatch.setenv("AUTOCYCLER_STREAM_KMERS", "on")
@@ -561,10 +560,15 @@ def test_compress_streamed_matches_jax_and_in_memory(monkeypatch, tmp_path,
         port = (tmp_path / "port" / name).read_bytes()
         assert port == (tmp_path / "jax" / name).read_bytes(), name
         assert port == (tmp_path / "mem" / name).read_bytes(), name
-    assert _tree(tmp_path / "port") == _tree(tmp_path / "jax") == [
+    # both packages' trees, warm-start cache entries included
+    cache = [".cache"] + sorted(
+        f".cache/{p.name}" for p in (tmp_path / "jax/.cache").iterdir())
+    assert [p for p in cache if p.startswith(".cache/asm-")] and \
+        [p for p in cache if p.startswith(".cache/repair-")]
+    assert _tree(tmp_path / "port") == _tree(tmp_path / "jax") == cache + [
         ".stream", "input_assemblies.gfa", "input_assemblies.yaml"]
-    assert _tree(tmp_path / "mem") == ["input_assemblies.gfa",
-                                       "input_assemblies.yaml"]
+    assert _tree(tmp_path / "mem") == cache + ["input_assemblies.gfa",
+                                               "input_assemblies.yaml"]
     assert st.stream_root() == tmp_path / "port" / ".stream"
 
 
@@ -573,7 +577,6 @@ def test_compress_default_mode_streams_where_jax_does(monkeypatch, tmp_path,
                                                       auto_windows):
     asm = make_assemblies(tmp_path, n_assemblies=2, chromosome_len=3000,
                           plasmid_len=500, seed=3)
-    monkeypatch.setenv("AUTOCYCLER_CACHE_DIR", str(tmp_path / "jax_cache"))
     monkeypatch.setenv("AUTOCYCLER_STREAM_AUTO_WINDOWS", auto_windows)
     _quiet(jax_compress, asm, tmp_path / "jax", 51, threads=1)
     _quiet(compress, asm, tmp_path / "port", 51, device="cpu")
