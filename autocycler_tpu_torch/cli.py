@@ -1,10 +1,12 @@
 """Command-line interface of the port: the subcommands ported so far, with
 the JAX package's flags and defaults (reference main.rs).
 
-``compress``, ``cluster``, ``trim``, ``resolve`` and ``dotplot`` run their
-device work on CUDA; without a CUDA device they fail with ``Error: ...``
-and exit code 1. ``decompress``, ``combine``, ``clean``, ``gfa2fasta``,
-``helper``, ``subsample`` and ``table`` are host code only. The main path
+``compress``, ``cluster``, ``trim``, ``resolve``, ``dotplot`` and ``batch``
+run their device work on CUDA; without a CUDA device they fail with
+``Error: ...`` and exit code 1. ``batch`` exits 0 when every isolate is
+done, 2 when some failed (recorded in its manifest), 1 when all failed.
+``decompress``, ``combine``, ``clean``, ``gfa2fasta``, ``helper``,
+``subsample`` and ``table`` are host code only. The main path
 is compress → cluster → trim → resolve (each QC-pass cluster) → combine;
 a user's pipeline puts ``helper`` and ``subsample`` before it and ``table``
 after it.
@@ -33,6 +35,25 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--version", action="version",
                         version=f"Autocycler-TPU-torch v{__version__}")
     sub = parser.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("batch",
+                       help="compress + cluster distances for MANY isolates in one "
+                            "mesh-batched device step, then trim, resolve and combine")
+    p.add_argument("-i", "--assemblies_parent", required=True,
+                   help="directory of isolate subdirectories, each a normal "
+                        "--assemblies_dir")
+    p.add_argument("-a", "--out_parent", required=True)
+    p.add_argument("-k", "--kmer", type=int, default=51)
+    p.add_argument("--max_contigs", type=int, default=25)
+    p.add_argument("--resume", action="store_true",
+                   help="replay a previous run from its batch_manifest.json, "
+                        "retrying only failed/pending isolates")
+    p.add_argument("--fleet", choices=["off", "on", "auto"], default=None,
+                   help="route the run through the fleet runner (bucketed "
+                        "shards, the isolate axis split over the devices, "
+                        "prefetched loads); default: the AUTOCYCLER_FLEET_MODE "
+                        "knob")
+    p.add_argument("-t", "--threads", type=int, default=8)
 
     p = sub.add_parser("clean",
                        help="manual manipulation of the final consensus assembly graph "
@@ -137,7 +158,14 @@ def build_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def dispatch(args) -> None:
+def dispatch(args) -> int:
+    """Runs the subcommand; returns its exit code (batch returns 2 on a
+    partial failure: some isolates quarantined, the rest complete)."""
+    if args.command == "batch":
+        from .commands.batch import batch
+        return batch(args.assemblies_parent, args.out_parent, args.kmer,
+                     args.max_contigs, resume=args.resume,
+                     threads=args.threads, fleet=args.fleet)
     if args.command == "clean":
         from .commands.clean import clean
         clean(args.in_gfa, args.out_gfa, args.remove, args.duplicate,
@@ -182,6 +210,7 @@ def dispatch(args) -> None:
         from .commands.trim import trim
         trim(args.cluster_dir, args.min_identity, args.max_unitigs, args.mad,
              args.threads)
+    return 0
 
 
 # The commands that build the reference-cyclic unitig graph, as the JAX
@@ -211,7 +240,7 @@ def main(argv=None) -> int:
     try:
         with trace.span(args.command, cat="command",
                         **({"argv": list(argv)} if argv else {})):
-            dispatch(args)
+            rc = dispatch(args)
     except AutocyclerError as e:
         print(f"\nError: {e}", file=sys.stderr)
         return 1
@@ -226,7 +255,7 @@ def main(argv=None) -> int:
             trace.write_metrics_file(metrics_path)
         if gc_disabled:
             gc.enable()
-    return 0
+    return rc
 
 
 if __name__ == "__main__":

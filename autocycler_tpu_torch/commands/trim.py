@@ -54,8 +54,24 @@ def overlap_screen(jobs, min_identity: float, max_unitigs: int,
     return alignments
 
 
+def overlap_jobs(paths: Dict[int, List[int]], weights: Weights
+                 ) -> Dict[Tuple[int, str], tuple]:
+    """The first round's three DP jobs of each path (reference
+    trim.rs:288-326): start-end aligns the path against itself off the
+    diagonal, hairpin-start the path against its signed reverse, and
+    hairpin-end the mirror."""
+    jobs = {}
+    for seq_id, path in paths.items():
+        rev = reverse_signed_path(path)
+        jobs[(seq_id, "start_end")] = (path, path, weights, True)
+        jobs[(seq_id, "hairpin_start")] = (path, rev, weights, False)
+        jobs[(seq_id, "hairpin_end")] = (rev, path, weights, False)
+    return jobs
+
+
 def trim(cluster_dir, min_identity: float = 0.75, max_unitigs: int = 5000,
-         mad: float = 5.0, threads: int = 1, device=None, preloaded=None
+         mad: float = 5.0, threads: int = 1, device=None, preloaded=None,
+         alignments: Optional[Alignments] = None
          ) -> Tuple[UnitigGraph, List[Sequence]]:
     """The overlap DPs run on ``device`` (CUDA unless the caller asks for
     the CPU); ``threads`` runs the per-sequence host work that follows them
@@ -64,7 +80,10 @@ def trim(cluster_dir, min_identity: float = 0.75, max_unitigs: int = 5000,
     in memory by ``cluster(collect_handoff=True)``, used in place of parsing
     1_untrimmed.gfa. Returns the trimmed (graph, sequences), which an
     in-process caller can hand to ``resolve(preloaded=...)``; 2_trimmed.gfa
-    is written all the same and stays the record."""
+    is written all the same and stays the record. ``alignments``, the
+    first round's {(seq_id, kind): pieces or []} for every sequence (what
+    ``batch`` decodes for all isolates at once), replaces that round's
+    screen and DP; the second hairpin-end round still runs here."""
     dev = resolve_device(device)
     cluster_dir = Path(cluster_dir)
     untrimmed_gfa = cluster_dir / "1_untrimmed.gfa"
@@ -102,13 +121,9 @@ def trim(cluster_dir, min_identity: float = 0.75, max_unitigs: int = 5000,
     with stage_timer("trim/overlaps"):
         paths = {seq_id: [n if s else -n for n, s in path]
                  for seq_id, path in all_paths.items()}
-        jobs = {}
-        for seq_id, path in paths.items():
-            rev = reverse_signed_path(path)
-            jobs[(seq_id, "start_end")] = (path, path, weights, True)
-            jobs[(seq_id, "hairpin_start")] = (path, rev, weights, False)
-            jobs[(seq_id, "hairpin_end")] = (rev, path, weights, False)
-        alignments = overlap_screen(jobs, min_identity, max_unitigs, dev)
+        if alignments is None:
+            alignments = overlap_screen(overlap_jobs(paths, weights),
+                                        min_identity, max_unitigs, dev)
         start_end = trim_start_end_overlap(sequences, weights, max_unitigs,
                                            paths, alignments, threads)
         hairpin = trim_hairpin_overlap(sequences, weights, max_unitigs, paths,

@@ -12,9 +12,10 @@ launch and each DP dispatch also opens a ``cat="device"`` span in the trace
 run (``obs.trace``), whose duration is the host's enqueue and whatever
 synchronisation the block itself does: no synchronise is added for it.
 
-The alignment DPs of trim and resolve and cluster's sketch intersection
-grid are torch ops on the device, not hand-written kernels. Each of their
-dispatches goes through
+The alignment DPs of trim and resolve, cluster's sketch intersection
+grid, and batch's contractions and sketch step (parallel/) are torch ops
+on the device, not hand-written kernels. Each of their dispatches goes
+through
 :func:`dp_dispatch`, which records its shape (rows, jobs or pairs, cells)
 on every device and its CUDA-event time on the card, under its own name,
 apart from the kernels' counters.
@@ -23,6 +24,7 @@ apart from the kernels' counters.
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Dict, List, Tuple
 
 import torch
@@ -35,11 +37,15 @@ launches: Dict[str, int] = {"sortnet_pack_rank": 0, "dotplot_match_grid": 0,
                              "dotplot_match_grid_mxu": 0}
 _events: Dict[str, List[Tuple[torch.cuda.Event, torch.cuda.Event]]] = {
     name: [] for name in launches}
+_count_lock = threading.Lock()
 # torch-op DP name -> one record per dispatch since the last reset_counts():
 # its shape as the caller gave it, and on the card its CUDA events
 dp_dispatches: Dict[str, List[dict]] = {"trim_overlap_dp": [],
                                         "resolve_medoid_dp": [],
-                                        "cluster_sketch_grid": []}
+                                        "cluster_sketch_grid": [],
+                                        "batch_membership_contraction": [],
+                                        "fleet_membership_contraction": [],
+                                        "batch_sketch_step": []}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -87,8 +93,11 @@ def launch(name: str, device: torch.device, fn, *args) -> None:
 
 def record_launch(name: str, start: torch.cuda.Event,
                   end: torch.cuda.Event) -> None:
-    launches[name] += 1
-    _events[name].append((start, end))
+    # batch's fleet runner repairs the next isolates' ends on pool threads
+    # while the main thread builds a graph: both launch the grouping
+    with _count_lock:
+        launches[name] += 1
+        _events[name].append((start, end))
 
 
 @contextlib.contextmanager

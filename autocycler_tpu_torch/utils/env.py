@@ -38,6 +38,15 @@ DEFAULTS = {
     # helper's assembler subprocesses: timeout (s, unset: none) and retries
     "AUTOCYCLER_SUBPROCESS_TIMEOUT": None,
     "AUTOCYCLER_SUBPROCESS_RETRIES": 0,
+    # batch: the fleet runner ('off' = serial, 'on', 'auto' = more than one
+    # device), its size buckets, shards of loads in flight ahead of the
+    # device, the device count it shards for (0: every CUDA device), and
+    # the armed crash points ('point[@n]' comma list)
+    "AUTOCYCLER_FLEET_MODE": "off",
+    "AUTOCYCLER_FLEET_BUCKETS": 4,
+    "AUTOCYCLER_FLEET_PREFETCH": 2,
+    "AUTOCYCLER_FLEET_DEVICES": 0,
+    "AUTOCYCLER_CRASH_POINTS": "",
 }
 
 

@@ -1,6 +1,9 @@
 """Failure handling, as the JAX package's utils/resilience.py has it: the
 streamed grouping's failure kind and the visible record of a path that
-gave way to another, and the hardened subprocess runner of ``helper``.
+gave way to another, the hardened subprocess runner of ``helper``, and
+what ``batch`` needs to run many isolates: the error taxonomy, the
+per-isolate quarantine, the knob-armed crash points and the resume
+manifest.
 
 A spill that cannot be trusted raises :class:`SpillError`; the k-mer index
 catches it (and ``OSError``), records the degrade, and groups in memory.
@@ -12,11 +15,21 @@ per (chain, from, to) in a process, and counts into
 :func:`run_command` runs an external command with a timeout, bounded
 retries with backoff, and the tail of its stderr in the
 :class:`SubprocessError` it raises after the last failed attempt.
+
+:func:`collect_errors` gives the quarantine ``batch`` wraps round each
+isolate: an :class:`AutocyclerError` or ``OSError`` inside it is recorded
+against the isolate, and the run goes on. Anything else, a CUDA error (a
+``RuntimeError``) among them, propagates. :class:`RunManifest` writes
+``batch_manifest.json`` in the JAX package's schema, so either package
+resumes the other's run. The crash points are armed only by
+``AUTOCYCLER_CRASH_POINTS``; the fault plan (``AUTOCYCLER_FAULTS``) is not
+ported.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import random
 import subprocess
@@ -25,22 +38,74 @@ import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 from ..obs import metrics_registry
-from .env import env_float, env_int
+from .env import env_float, env_int, env_str
 from .misc import AutocyclerError
 
 DEGRADES_TOTAL = "autocycler_degrades_total"
 SUBPROCESS_RUNS_TOTAL = "autocycler_subprocess_runs_total"
 SUBPROCESS_RETRIES_TOTAL = "autocycler_subprocess_retries_total"
 SUBPROCESS_FAILURES_TOTAL = "autocycler_subprocess_failures_total"
+QUARANTINED_TOTAL = "autocycler_quarantined_items_total"
+FAULT_INJECTIONS_TOTAL = "autocycler_fault_injections_total"
+
+
+class InputError(AutocyclerError):
+    """Malformed or missing user input (corrupt FASTA/GFA, empty isolate,
+    bad flag value)."""
 
 
 class SpillError(AutocyclerError):
     """The streamed k-mer grouping's on-disk spill is unusable (torn or
     truncated bin, manifest/record mismatch, duplicate representatives
     across bins)."""
+
+
+class IsolateError(AutocyclerError):
+    """A per-isolate failure inside a multi-isolate batch: quarantined and
+    recorded in the run manifest instead of killing the whole run."""
+
+    def __init__(self, isolate: str, cause: BaseException):
+        self.isolate = isolate
+        self.cause = cause
+        super().__init__(f"isolate {isolate}: {cause}")
+
+
+class ErrorCollector:
+    """Quarantines per-item failures: code inside :meth:`quarantine` that
+    raises an :class:`AutocyclerError` (or OSError — malformed inputs often
+    surface as file errors) records the failure against the item and
+    continues, instead of aborting the run. Every other exception, a CUDA
+    error among them, propagates."""
+
+    def __init__(self):
+        self.errors: Dict[str, IsolateError] = {}
+
+    @contextlib.contextmanager
+    def quarantine(self, item: str):
+        try:
+            yield
+        except (AutocyclerError, OSError) as e:
+            from . import log
+            err = IsolateError(item, e)
+            log.message(f"WARNING: {err} — skipping")
+            self.errors[item] = err
+            metrics_registry.counter_inc(
+                QUARANTINED_TOTAL, 1,
+                help="per-item failures quarantined instead of aborting")
+
+    def failed(self, item: str) -> bool:
+        return item in self.errors
+
+    def __len__(self) -> int:
+        return len(self.errors)
+
+
+def collect_errors() -> ErrorCollector:
+    """A fresh quarantine collector: ``with errs.quarantine(name): ...``."""
+    return ErrorCollector()
 
 
 _degrade_lock = threading.Lock()
@@ -91,6 +156,112 @@ def pid_alive(pid: int) -> bool:
     except OSError:
         return True  # EPERM: alive but not ours
     return True
+
+
+# ---------------------------------------------------------------------------
+# Knob-armed crash points (the chaos harness's kill switch)
+# ---------------------------------------------------------------------------
+
+# The JAX package's registered crash points, by name:
+#   post-stage          a stage's artifacts are flushed but the manifest
+#                       terminal flag has NOT been flipped yet
+#   mid-spill-write     half a spill record written to a stream bin
+#   mid-cache-store     cache payload written to its tmp file, not renamed
+#   pre-artifact-rename manifest/ledger tmp written, os.replace pending
+#   mid-fleet-shard     a fleet shard's compress checkpoints are durable but
+#                       its cluster/finalise stages have not started
+# The port calls post-stage, pre-artifact-rename and mid-fleet-shard.
+CRASH_POINTS = ("post-stage", "mid-spill-write", "mid-cache-store",
+                "pre-artifact-rename", "mid-fleet-shard")
+
+# the distinctive status a crash-injected process dies with, so a harness
+# can tell an injected crash from a genuine failure
+CRASH_EXIT = 43
+
+# Patchable seam so tests can observe a would-be crash instead of dying.
+_exit = os._exit
+
+_crash_lock = threading.Lock()
+# Per-point hit counters for AUTOCYCLER_CRASH_POINTS "point@n" arming;
+# process-wide because a crash point is a process-lifetime event.
+_crash_hits: Dict[str, int] = {}
+_crash_spec_cache: Optional[Tuple[str, Dict[str, int]]] = None
+
+
+def _crash_exit(point: str, key: str = "") -> None:
+    suffix = f" ({key})" if key else ""
+    sys.stderr.write(f"autocycler crash injection: {point}{suffix}\n")
+    sys.stderr.flush()
+    _exit(CRASH_EXIT)
+
+
+def _parse_crash_points(spec: str) -> Dict[str, int]:
+    """``point[@n]`` comma list -> {point: 1-based hit index to crash at}."""
+    out: Dict[str, int] = {}
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, _, nth = part.partition("@")
+        if name not in CRASH_POINTS:
+            raise InputError(
+                f"unknown crash point {name!r} in AUTOCYCLER_CRASH_POINTS "
+                f"(choose from: {', '.join(CRASH_POINTS)})")
+        if nth:
+            try:
+                out[name] = max(1, int(nth))
+            except ValueError:
+                raise InputError(
+                    f"bad crash-point hit index {nth!r} for {name!r} "
+                    "(expected 'point' or 'point@N')")
+        else:
+            out[name] = 1
+    return out
+
+
+def _crash_due_locked(point: str, advance: bool) -> bool:
+    """Whether the next hit of ``point`` is armed via AUTOCYCLER_CRASH_POINTS.
+    Call under ``_crash_lock``; ``advance`` consumes one hit."""
+    global _crash_spec_cache
+    spec = env_str("AUTOCYCLER_CRASH_POINTS")
+    targets: Dict[str, int] = {}
+    if spec:
+        if _crash_spec_cache is None or _crash_spec_cache[0] != spec:
+            _crash_spec_cache = (spec, _parse_crash_points(spec))
+        targets = _crash_spec_cache[1]
+    hit = _crash_hits.get(point, 0) + 1
+    if advance:
+        _crash_hits[point] = hit
+    return targets.get(point) == hit
+
+
+def crash_armed(point: str, key: str = "") -> bool:
+    """True when :func:`crash_point` called now would kill the process,
+    WITHOUT consuming the hit."""
+    with _crash_lock:
+        return _crash_due_locked(point, advance=False)
+
+
+def crash_point(point: str, key: str = "") -> None:
+    """A registered crash point: deterministically ``_exit(CRASH_EXIT)``
+    here when ``AUTOCYCLER_CRASH_POINTS`` (comma list of ``point[@n]``)
+    arms the n-th hit of ``point`` (default the first), else a no-op.
+    Every call counts one hit for the ``@n`` bookkeeping."""
+    with _crash_lock:
+        due = _crash_due_locked(point, advance=True)
+    if due:
+        metrics_registry.counter_inc(
+            FAULT_INJECTIONS_TOTAL, 1,
+            help="deterministic fault-injection rule firings",
+            site=point, mode="crash")
+        _crash_exit(point, key)
+
+
+def _reset_crash_hits_for_tests() -> None:
+    global _crash_spec_cache
+    with _crash_lock:
+        _crash_hits.clear()
+        _crash_spec_cache = None
 
 
 # ---------------------------------------------------------------------------
@@ -242,3 +413,192 @@ def _attempt(cmd, stdout_file, cwd, timeout):
     with contextlib.suppress(OSError):
         os.remove(stderr_path)
     return returncode, reason, tail
+
+
+# ---------------------------------------------------------------------------
+# Resume manifests
+# ---------------------------------------------------------------------------
+
+def sweep_stale_tmps(path) -> int:
+    """Remove leftover ``<name>.<pid>.*.tmp`` siblings of ``path`` whose
+    writing process is dead. Tmp names are pid-tagged exactly so two live
+    writers sharing a root never delete each other's in-flight writes."""
+    path = Path(path)
+    removed = 0
+    if not path.parent.is_dir():
+        return removed
+    for tmp in path.parent.glob(path.name + "*"):
+        name = tmp.name
+        if name == path.name or ".tmp" not in name or name.endswith(".bak"):
+            continue
+        pid_tok = name[len(path.name):].lstrip(".").split(".", 1)[0]
+        if pid_tok.isdigit() and pid_alive(int(pid_tok)):
+            continue
+        with contextlib.suppress(OSError):
+            tmp.unlink()
+            removed += 1
+    return removed
+
+
+def read_manifest(path) -> dict:
+    """Never-raise reader for run manifests. Parses ``path`` (falling back
+    to ``<path>.bak``) to the last good state; a torn tail, garbage
+    content, or a missing file yields an empty manifest, never an
+    exception — a crash mid-write must not brick the next start-up."""
+    path = Path(path)
+    for candidate in (path, path.with_name(path.name + ".bak")):
+        try:
+            data = json.loads(candidate.read_text())
+        except (OSError, ValueError):
+            continue
+        if isinstance(data, dict) and isinstance(data.get("items"), dict):
+            return data
+    return {"version": RunManifest.VERSION, "items": {}}
+
+
+class RunManifest:
+    """A JSON manifest of per-item status for a resumable multi-item run
+    (`batch` writes ``batch_manifest.json``), in the JAX package's schema,
+    so either package resumes the other's run.
+
+    Schema (version 1)::
+
+        {"version": 1,
+         "items": {"<name>": {"status": "pending|running|failed|done",
+                              "stage": "<last stage reached>" | null,
+                              "error": "<message>" | null,
+                              "attempts": <int>,
+                              # optional, present once a stage checkpoints:
+                              "stages": {"<stage>": {
+                                  "done": true,
+                                  "outputs": {"<path>": {"sha256", "bytes"}},
+                                  "ts_epoch": <float>}}}}}
+
+    Every mutation rewrites the file atomically (pid-tagged tmp + rename,
+    previous state kept as ``<name>.bak``), so a run killed at any point
+    leaves a loadable manifest; loading never raises (torn/garbage files
+    parse to the last good state via :func:`read_manifest`). Items still
+    "running" at load time are interrupted and eligible for resume; their
+    per-stage records say where to re-enter."""
+
+    VERSION = 1
+
+    def __init__(self, path):
+        self.path = Path(path)
+        self.items: Dict[str, dict] = {}
+        # every mutate-then-save is atomic against concurrent writers
+        self._mu = threading.RLock()
+
+    @classmethod
+    def load(cls, path) -> "RunManifest":
+        manifest = cls(path)
+        sweep_stale_tmps(Path(path))
+        manifest.items = read_manifest(path).get("items", {})
+        return manifest
+
+    def _entry(self, name: str) -> dict:
+        return self.items.setdefault(
+            name, {"status": "pending", "stage": None, "error": None,
+                   "attempts": 0})
+
+    def status(self, name: str) -> Optional[str]:
+        with self._mu:
+            entry = self.items.get(name)
+            return entry["status"] if entry else None
+
+    def pending(self, name: str) -> None:
+        with self._mu:
+            self._entry(name)
+            self.save()
+
+    def start(self, name: str) -> None:
+        with self._mu:
+            entry = self._entry(name)
+            entry["status"] = "running"
+            entry["attempts"] += 1
+            entry["error"] = None
+            self.save()
+
+    def stage_done(self, name: str, stage: str, outputs=()) -> None:
+        """Checkpoint ``stage`` of item ``name`` as complete, recording the
+        content hash of each flushed output artifact. The ``post-stage``
+        crash point sits between artifact flush and the manifest flip: a
+        crash there re-runs the stage on resume, never skips it."""
+        from ..obs.ledger import artifact_hash
+        recorded = {}
+        for path in outputs:
+            info = artifact_hash(Path(path))
+            if info is not None:
+                recorded[str(path)] = info
+        crash_point("post-stage", f"{name}/{stage}")
+        with self._mu:
+            entry = self._entry(name)
+            entry["stage"] = stage
+            entry.setdefault("stages", {})[stage] = {
+                "done": True, "outputs": recorded, "ts_epoch": time.time()}
+            self.save()
+
+    def stage_complete(self, name: str, stage: str, verify: bool = True) -> bool:
+        """True when ``stage`` of ``name`` checkpointed AND (with ``verify``)
+        every recorded output still exists with its recorded hash — a
+        deleted or doctored artifact demotes the stage to not-done, so
+        resume re-runs rather than trusting a stale flag."""
+        from ..obs.ledger import artifact_hash
+        with self._mu:
+            entry = self.items.get(name) or {}
+            rec = dict((entry.get("stages") or {}).get(stage) or {})
+            outputs = dict(rec.get("outputs") or {})
+        if not rec.get("done"):
+            return False
+        if not verify:
+            return True
+        for path, want in outputs.items():
+            have = artifact_hash(Path(path))
+            if have is None or have.get("sha256") != (want or {}).get("sha256"):
+                return False
+        return True
+
+    def done(self, name: str) -> None:
+        with self._mu:
+            entry = self._entry(name)
+            entry["status"] = "done"
+            entry["error"] = None
+            self.save()
+
+    def fail(self, name: str, error: str, stage: Optional[str] = None) -> None:
+        with self._mu:
+            entry = self._entry(name)
+            entry["status"] = "failed"
+            entry["error"] = str(error)
+            if stage is not None:
+                entry["stage"] = stage
+            self.save()
+
+    def save(self) -> None:
+        self.path.parent.mkdir(parents=True, exist_ok=True)
+        with self._mu:
+            payload = json.dumps({"version": self.VERSION,
+                                  "items": self.items},
+                                 indent=2, sort_keys=True)
+            fd, tmp = tempfile.mkstemp(
+                dir=self.path.parent,
+                prefix=f"{self.path.name}.{os.getpid()}.",
+                suffix=".tmp")
+            try:
+                with os.fdopen(fd, "w") as f:
+                    f.write(payload + "\n")
+                    f.flush()
+                    os.fsync(f.fileno())
+                crash_point("pre-artifact-rename", str(self.path))
+                # keep the previous good state reachable: a reader that
+                # lands between the two renames falls back to the .bak
+                if self.path.is_file():
+                    with contextlib.suppress(OSError):
+                        os.replace(
+                            self.path,
+                            self.path.with_name(self.path.name + ".bak"))
+                os.replace(tmp, self.path)
+            except BaseException:
+                with contextlib.suppress(OSError):
+                    os.remove(tmp)
+                raise

@@ -43,6 +43,25 @@ Phases (any failure exits non-zero, and the result lines are not printed):
              which must write the same bytes. The headline compress is
              cold and writes the JAX package's tree, its .cache holding 24
              parse entries and the repair entry.
+   batch   — `batch` through the CLI on [main]'s headline isolate (its
+             assemblies symlinked), 7 of bench.py bench_batch's isolates
+             (12 assemblies of a 50 kb chromosome + 5 kb plasmid, seeds
+             500-506; cut from 96) and one whose FASTA record has no
+             sequence: serial (exit 2; 8 done, the corrupt one failed at
+             compress; 2 circular consensus records each; the headline's
+             GFA, clustering, stage GFAs and consensus equal to [main]'s
+             CLI files), --fleet on (the plan printed: shards of one, the
+             headline first; every file of the 8 done isolates equal to
+             the serial run's), then --resume of the fleet run (only the
+             corrupt isolate tried again, so exit 1 as the JAX package's;
+             no other file changed). Each run's grouping launches, DP and
+             contraction dispatches, batch/* stage seconds, wall and
+             isolates/s are printed. Then the sharded code with 4 shards
+             on cuda:0 (a 2 x 2 mesh): the membership contraction over the
+             serial run's matrices against the 1 x 1 mesh and the host
+             int64 product, and the sketch step at 96 x 12 x 1024 (k=21,
+             4096 buckets) against the single-device step on the card and
+             on CPU tensors, exact.
    warm    — the headline compress once more through the CLI into a fresh
              directory, AUTOCYCLER_CACHE_DIR at [main]'s .cache and
              AUTOCYCLER_TRACE_DIR set: [main]'s GFA and YAML, 24 parse hits,
@@ -891,10 +910,11 @@ def overlap_configuration(work: Path, replicons) -> None:
         raise AssertionError("[profile] the profiled trim differs")
 
 
-def run_cli(label: str, argv, phase: str = "main") -> dict:
+def run_cli(label: str, argv, phase: str = "main", expect_rc: int = 0) -> dict:
     """One CLI call with every launch count, DP record, spill counter,
     degrade record and timer set to 0 just before it and read just after.
-    A degrade recorded in the call fails it. Returns its launches, DP
+    An exit code other than ``expect_rc``, or a degrade recorded in the
+    call, fails it. Returns its launches, DP
     dispatches, stage and substage seconds, wall seconds, the streamed
     grouping's record (empty when it grouped in memory), and its peak
     device memory above what was held before it; for a compress, also
@@ -943,7 +963,7 @@ def run_cli(label: str, argv, phase: str = "main") -> dict:
     launches = dict(device.launches)
     kernel_ms = {n: device.kernel_ms(n) for n, c in launches.items() if c}
     dps = {n: device.dp_summary(n) for n in device.dp_dispatches}
-    if rc != 0:
+    if rc != expect_rc:
         raise RuntimeError(f"[{phase}] {label} exited {rc}:\n"
                            f"{stderr.getvalue()[-3000:]}")
     if resilience.degrade_events():
@@ -1261,6 +1281,228 @@ def phase_handoff(work: Path) -> None:
     log("[handoff] the hand-over and the in-process file flow write every "
         "file the CLI run in [main] does, byte for byte")
     return compress_groupings, stream["bins"]
+
+
+# [batch]: bench.py bench_batch's isolates (BASELINE.md's "96 genomes x 12
+# assemblies" row), cut from 96 to 7 for the script's time, beside the
+# headline isolate (a symlink to each of [main]'s assemblies) and an
+# isolate whose FASTA record has no sequence
+BATCH_SMALL = dict(fast=True, seed0=500, n_assemblies=12,
+                   chromosome_len=50_000, plasmid_len=5_000, n_snps=20)
+BATCH_SMALL_ISOLATES = 7
+# the sharded sketch step's check: tests/test_parallel.py's headline batch
+BATCH_SKETCH = dict(isolates=96, assemblies=12, length=1024, k=21,
+                    buckets=4096)
+
+
+def _batch_isolates(work: Path) -> Path:
+    from synthetic import make_isolate_dirs
+
+    parent = make_isolate_dirs(work / "batch_isolates", BATCH_SMALL_ISOLATES,
+                               **BATCH_SMALL)
+    headline = parent / "iso_headline"
+    headline.mkdir()
+    for f in sorted((work / "headline" / "assemblies").iterdir()):
+        (headline / f.name).symlink_to(f)
+    corrupt = parent / "iso_corrupt"
+    corrupt.mkdir()
+    (corrupt / "assembly_1.fasta").write_text(">broken_record\n")
+    return parent
+
+
+def _isolate_files(out: Path, names) -> dict:
+    """{relative path: bytes} of the named isolates' out dirs; a
+    warm-start cache entry by name only (its zip members carry their
+    write time)."""
+    files = {}
+    for name in names:
+        for f in sorted((out / name).rglob("*")):
+            if f.is_file():
+                rel = str(f.relative_to(out))
+                files[rel] = None if ".cache" in f.parts else f.read_bytes()
+    return files
+
+
+def _batch_run(label: str, argv, n_done: int, expect_rc: int = 2) -> dict:
+    """One batch CLI call (exit code 2: the corrupt isolate fails, the rest
+    are done) with its counters read around it; logs launches, dispatches,
+    the batch/* stage seconds, the wall and isolates/s."""
+    run = run_cli(label, argv, phase="batch", expect_rc=expect_rc)
+    dps = {name: run["dp"][name]["dispatches"] for name in (
+        "trim_overlap_dp", "batch_membership_contraction",
+        "fleet_membership_contraction")}
+    stages = {name: run["stages"].get(name) for name in (
+        "batch/compress", "batch/distances", "batch/cluster",
+        "batch/trim_screen", "batch/finalise")}
+    run["summary"] = {
+        "grouping_launches": run["launches"]["sortnet_pack_rank"],
+        "dispatches": dps, "stages_s": stages, "wall_s": run["wall_s"],
+        "isolates_done": n_done, "isolates_per_s": n_done / run["wall_s"]}
+    log(f"[batch] {label}: {json.dumps(run['summary'])}")
+    return run
+
+
+def _check_manifest(out: Path, label: str, good, attempts: int) -> dict:
+    items = json.loads((out / "batch_manifest.json").read_text())["items"]
+    bad = items.get("iso_corrupt", {})
+    if sorted(n for n, e in items.items() if e["status"] == "done") != good \
+            or bad.get("status") != "failed" or bad.get("stage") != "compress" \
+            or bad.get("attempts") != attempts:
+        raise AssertionError(f"[batch] {label} manifest: "
+                             f"{json.dumps({n: [e['status'], e['stage'], e['attempts']] for n, e in items.items()})}")
+    return items
+
+
+def _consensus_circular(out: Path, name: str) -> None:
+    headers = [line for line in (out / name / "consensus_assembly.fasta")
+               .read_text().splitlines() if line.startswith(">")]
+    if len(headers) != 2 or not all("circular=true" in h for h in headers):
+        raise AssertionError(f"[batch] {name} consensus: {headers}")
+
+
+def phase_batch(work: Path) -> None:
+    """`batch` through the CLI on the card: the headline isolate, 7 of
+    bench_batch's isolates and a corrupt one, serial (exit 2; 8 done and
+    the corrupt one failed at compress; each consensus 2 circular records;
+    the headline's files equal to [main]'s CLI files), then with
+    ``--fleet on`` (every file of the 8 done isolates equal to the serial
+    run's), then ``--resume`` of the fleet run (only the corrupt isolate
+    tried again, no other file changed). Then the sharded code with more
+    than one shard on the card: the membership contraction on a 2 x 2 mesh
+    of cuda:0 over the serial run's membership matrices against the 1 x 1
+    mesh and the host int64 product, and the sharded sketch step against
+    the single-device step on the card and on CPU tensors, all exact."""
+    from autocycler_tpu_torch.commands import batch as batch_mod
+    from autocycler_tpu_torch.parallel import batch as pbatch
+    from autocycler_tpu_torch.parallel import fleet, mesh
+
+    t0 = time.perf_counter()
+    parent = _batch_isolates(work)
+    names = sorted(d.name for d in parent.iterdir())
+    good = [n for n in names if n != "iso_corrupt"]
+    log(f"[batch] isolates generated in {time.perf_counter() - t0:.3f} s: "
+        f"{len(good)} good ({BATCH_SMALL_ISOLATES} of bench_batch's "
+        f"{json.dumps(BATCH_SMALL)}, and the headline), iso_corrupt")
+    serial, fleet_out = work / "batch_serial", work / "batch_fleet"
+    base = ["batch", "-i", parent, "-k", "51", "-t", "8"]
+    with _recorded(batch_mod, "batched_membership_intersections",
+                   lambda a, r: (a[1], a[2])) as contractions:
+        runs = {"serial": _batch_run("serial", base + ["-a", serial],
+                                     len(good))}
+    _check_manifest(serial, "serial", good, 1)
+    for name in good:
+        _consensus_circular(serial, name)
+    headline = _isolate_files(serial, ["iso_headline"])
+    mismatched = [rel for rel, data in headline.items()
+                  if data is not None and
+                  (work / "out" / Path(rel).relative_to("iso_headline"))
+                  .read_bytes() != data]
+    compared = [rel for rel, data in headline.items() if data is not None]
+    wanted = ["input_assemblies.gfa", "clustering/pairwise_distances.phylip",
+              "clustering/clustering.newick", "clustering/clustering.tsv",
+              "clustering/clustering.yaml", "consensus_assembly.gfa",
+              "consensus_assembly.fasta"]
+    for c in sorted((work / "out" / "clustering" / "qc_pass").iterdir()):
+        wanted += [f"clustering/qc_pass/{c.name}/{n}" for n in (
+            "1_untrimmed.gfa", "2_trimmed.gfa", "5_final.gfa")]
+    missing = [w for w in wanted if f"iso_headline/{w}" not in compared]
+    if mismatched or missing:
+        raise AssertionError(f"[batch] iso_headline against [main]'s CLI "
+                             f"files: differ {mismatched}, missing {missing}")
+    log(f"[batch] iso_headline: {len(compared)} files byte-identical to "
+        "[main]'s CLI run (GFA, clustering, each cluster's stages, the "
+        "consensus)")
+    if runs["serial"]["summary"]["grouping_launches"] == 0 or \
+            runs["serial"]["summary"]["dispatches"][
+                "batch_membership_contraction"] != 1:
+        raise AssertionError("[batch] serial: no grouping launch, or not "
+                             "one contraction dispatch")
+
+    n_dev = fleet.fleet_devices()
+    plan = fleet.plan_fleet(
+        {n: fleet.isolate_cost(parent / n) for n in names}, n_dev,
+        int(os.environ.get("AUTOCYCLER_FLEET_BUCKETS", "4")))
+    shards = [(sh.index, sh.bucket, list(sh.names)) for sh in plan.shards]
+    log(f"[batch] fleet plan ({n_dev} device(s)): {json.dumps(shards)}")
+    if any(len(sh.names) != 1 for sh in plan.shards) or \
+            plan.shards[0].names != ("iso_headline",):
+        raise AssertionError("[batch] the fleet plan does not put the "
+                             "headline first, in a shard of its own")
+    runs["fleet"] = _batch_run("fleet", base + ["-a", fleet_out,
+                                                "--fleet", "on"], len(good))
+    _check_manifest(fleet_out, "fleet", good, 1)
+    fleet_files = _isolate_files(fleet_out, good)
+    if fleet_files != _isolate_files(serial, good):
+        raise AssertionError("[batch] the fleet run's files differ from the "
+                             "serial run's")
+    summary = runs["fleet"]["summary"]
+    if summary["grouping_launches"] == 0 or \
+            summary["dispatches"]["fleet_membership_contraction"] != \
+            len(plan.shards) - 1:
+        raise AssertionError("[batch] fleet: no grouping launch, or not one "
+                             "contraction a shard with a compressed isolate")
+    log(f"[batch] fleet: every file of the {len(good)} done isolates "
+        f"({len(fleet_files)} files) equal to the serial run's")
+
+    # every isolate the resume tries fails, so it exits 1, as the JAX
+    # package's does ("all 1 isolate(s) failed during compress")
+    runs["resume"] = _batch_run("resume", base + ["-a", fleet_out, "--fleet",
+                                                  "on", "--resume"], 0,
+                                expect_rc=1)
+    items = _check_manifest(fleet_out, "resume", good, 2)
+    if any(items[n]["attempts"] != 1 for n in good) or \
+            _isolate_files(fleet_out, good) != fleet_files or \
+            runs["resume"]["summary"]["grouping_launches"]:
+        raise AssertionError("[batch] the resume touched a done isolate")
+    log("[batch] resume: exit 1 (its one isolate failed again), every done "
+        "isolate skipped, iso_corrupt tried again (attempts 2), no other "
+        "file changed, no grouping launched")
+
+    # the sharded code with more than one shard, on the card
+    (M_list, w_list), _ = contractions[0]
+    cuda = torch.device("cuda:0")
+    four = mesh.make_mesh(devices=[cuda] * 4)
+    one = mesh.make_mesh(devices=[cuda])
+    t0 = time.perf_counter()
+    sharded = pbatch.batched_membership_intersections(four, M_list, w_list)
+    sharded_s = time.perf_counter() - t0
+    single = pbatch.batched_membership_intersections(one, M_list, w_list)
+    host = [(m.astype(np.int64) * w[None, :]) @ m.astype(np.int64).T
+            for m, w in zip(M_list, w_list)]
+    if not all(np.array_equal(a, b) and np.array_equal(a, c)
+               for a, b, c in zip(sharded, single, host)):
+        raise AssertionError("[batch] the 2 x 2 mesh's contraction differs "
+                             "from the 1 x 1 mesh's or the host's")
+    log(f"[batch] membership contraction on a {four.shape} mesh of cuda:0, "
+        f"{len(M_list)} isolates (contigs {[m.shape[0] for m in M_list]}, "
+        f"unitigs up to {max(m.shape[1] for m in M_list)}): equal to the "
+        f"1 x 1 mesh and the host int64 product, max_abs_err 0; "
+        f"{sharded_s:.3f} s")
+    cfg = BATCH_SKETCH
+    rng = np.random.default_rng(9)
+    genomes = []
+    for _ in range(cfg["isolates"]):
+        g = "".join(rng.choice(list("ACGT"), size=cfg["length"]))
+        other = "".join(rng.choice(list("ACGT"), size=cfg["length"]))
+        genomes.append([g, g[50:] + g[:50], other])
+    codes = np.tile(pbatch.encode_batch(genomes, length=cfg["length"]),
+                    (1, cfg["assemblies"] // 3, 1))
+    kwargs = dict(k=cfg["k"], buckets=cfg["buckets"])
+    on_mesh = pbatch.sharded_multi_isolate_step(four, codes, **kwargs)
+    on_card = pbatch.multi_isolate_distance_step(
+        torch.from_numpy(codes).to(cuda), **kwargs)
+    on_cpu = pbatch.multi_isolate_distance_step(torch.from_numpy(codes),
+                                                **kwargs)
+    if on_mesh.shape != (cfg["isolates"], cfg["assemblies"],
+                         cfg["assemblies"]) or \
+            not (np.array_equal(on_mesh, on_card) and
+                 np.array_equal(on_mesh, on_cpu)):
+        raise AssertionError("[batch] the sharded sketch step differs from "
+                             "the single-device step on the card or the CPU")
+    log(f"[batch] sharded sketch step, {tuple(codes.shape)} on a "
+        f"{four.shape} mesh of cuda:0: bitwise equal (float32) to the "
+        "single-device step on the card and on CPU tensors")
+    return {name: run["summary"] for name, run in runs.items()}
 
 
 # One CLI call in a fresh process: the resident set after torch's import
@@ -2306,7 +2548,7 @@ def timing_match_grid_mxu(a, b, k: int, tile: int):
 
 
 def phase_timing(paths, groupings, plasmid_pair, dotplot_groupings,
-                 grid_words):
+                 grid_words, batch_runs):
     """``groupings`` is (the streamed compress's groupings, its bin count,
     the in-memory k=51 grouping)."""
     a, b = grid_words
@@ -2325,6 +2567,9 @@ def phase_timing(paths, groupings, plasmid_pair, dotplot_groupings,
         numbers, path = timed[name]
         rows.append({"name": name, **meta,
                      "launches": paths[path][name], "path": path, **numbers})
+    sortnet = next(r for r in rows if r["name"] == "sortnet_pack_rank")
+    sortnet["batch_launches"] = {
+        label: run["grouping_launches"] for label, run in batch_runs.items()}
     return rows
 
 
@@ -2354,6 +2599,8 @@ def main() -> int:
         with _phase("main"):
             paths, compressed, plasmid_pair, dotplot_groupings = phase_main(
                 Path(td))
+        with _phase("batch"):
+            batch_runs = phase_batch(Path(td))
         with _phase("warm"):
             phase_warm(Path(td), compressed)
         with _phase("tools"):
@@ -2368,7 +2615,8 @@ def main() -> int:
         paths["grid"], grid_words = phase_grid()
     with _phase("timing"):
         rows = phase_timing(paths, (compress_groupings, n_bins, in_memory),
-                            plasmid_pair, dotplot_groupings, grid_words)
+                            plasmid_pair, dotplot_groupings, grid_words,
+                            batch_runs)
     if any(r["max_abs_err"] != 0 for r in rows):
         raise AssertionError("[timing] a kernel disagrees with its plain "
                              "version at the main path's shapes")

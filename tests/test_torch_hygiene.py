@@ -18,9 +18,12 @@ FORBIDDEN_IMPORT = re.compile(
 
 
 def test_port_runs_compress_without_jax(tmp_path):
-    from synthetic import make_assemblies
+    from synthetic import make_assemblies, make_isolate_dirs
     asm = make_assemblies(tmp_path, n_assemblies=2, chromosome_len=3000,
                           plasmid_len=500)
+    isolates = make_isolate_dirs(tmp_path / "isolates", 2, seed0=5,
+                                 n_assemblies=3, chromosome_len=160,
+                                 plasmid_len=70)
     code = (
         "import sys\n"
         "from autocycler_tpu_torch.commands.compress import compress\n"
@@ -94,6 +97,11 @@ def test_port_runs_compress_without_jax(tmp_path):
         "print('TOOLS', sorted(p.name for p in (tmp / 'subs').iterdir()),\n"
         "      (tmp / 'final.fasta').is_file(), (tmp / 'clean.gfa').is_file(),\n"
         "      sorted(p.name for p in (out / '.cache').iterdir()))\n"
+        "from autocycler_tpu_torch.commands.batch import batch\n"
+        f"print('BATCH', batch({str(isolates)!r}, tmp / 'batch', k_size=21,\n"
+        "                      device='cpu'),\n"
+        f"      batch({str(isolates)!r}, tmp / 'fleet', k_size=21, fleet='on',\n"
+        "            device='cpu'))\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'autocycler_tpu' or m.startswith('autocycler_tpu.')]\n"
         "print('LOADED', bad)\n")
@@ -111,6 +119,10 @@ def test_port_runs_compress_without_jax(tmp_path):
         "'sample_04.fastq', 'subsample.yaml'] True True []" in res.stdout
     assert "\nx\t" in res.stdout                   # table's row
     assert "SKETCH 1" in res.stdout
+    assert "BATCH 0 0" in res.stdout
+    for out in ("batch", "fleet"):
+        for iso in ("iso_000", "iso_001"):
+            assert (tmp_path / out / iso / "consensus_assembly.fasta").is_file()
     assert "STREAM True ['.cache', '.stream', 'input_assemblies.gfa', " \
         "'input_assemblies.yaml']" in res.stdout
     assert (tmp_path / "sketch/consensus_assembly.fasta").read_text().count(
