@@ -9,12 +9,15 @@ done, 2 when some failed (recorded in its manifest), 1 when all failed.
 ``subsample`` and ``table`` are host code only. The main path
 is compress → cluster → trim → resolve (each QC-pass cluster) → combine;
 a user's pipeline puts ``helper`` and ``subsample`` before it and ``table``
-after it.
+after it. ``serve`` runs that path as a daemon on the card (without one it
+fails with ``Error: ...`` and exit 1 before it binds a socket), ``submit``
+is its client and needs no card, and ``report`` and ``watch`` render a run
+dir.
 
 With ``AUTOCYCLER_TRACE_DIR`` set, a command writes its run record there:
 ``trace.jsonl`` (and ``trace.chrome.json``), ``metrics.json``/``.prom``,
-``qc_report.json`` and ``ledger.json``. ``AUTOCYCLER_METRICS`` names a file
-for a Prometheus dump at exit.
+``qc_report.json``, ``ledger.json`` and ``timeseries.jsonl``.
+``AUTOCYCLER_METRICS`` names a file for a Prometheus dump at exit.
 """
 
 from __future__ import annotations
@@ -130,9 +133,88 @@ def build_parser() -> argparse.ArgumentParser:
                         "backoff (default 0)")
     p.add_argument("--args", dest="extra_args", nargs="+", default=[])
 
+    p = sub.add_parser("report",
+                       help="render a run's telemetry (trace spans, metrics, "
+                            "batch manifest, bench artifacts) as one report")
+    p.add_argument("run_dir",
+                   help="directory holding trace.jsonl / metrics.json "
+                        "(an AUTOCYCLER_TRACE_DIR run dir or an output dir)")
+    p.add_argument("--json", action="store_true",
+                   help="emit the merged report as JSON instead of text")
+    p.add_argument("--html", nargs="?", const="", default=None,
+                   metavar="PATH",
+                   help="additionally write a self-contained run_report.html "
+                        "(into the run dir, or to PATH when given)")
+    p.add_argument("--correlate", default=None, metavar="TRACE_ID",
+                   help="cross-run mode: merge every trace under run_dir "
+                        "carrying this correlation id (client submissions, "
+                        "replica jobs, fleet shards) into one Chrome trace "
+                        "with one process lane per run")
+
     p = sub.add_parser("resolve", help="resolve repeats in the unitig graph")
     p.add_argument("-c", "--cluster_dir", required=True)
     p.add_argument("--verbose", action="store_true")
+
+    p = sub.add_parser("serve",
+                       help="assembly-as-a-service daemon: accept isolate "
+                            "jobs over a local HTTP endpoint, run on the "
+                            "card with warm kernels and parse/repair "
+                            "caches, a bounded work queue and live /metrics "
+                            "+ /healthz")
+    p.add_argument("-a", "--dir", dest="serve_dir", required=True,
+                   help="daemon root: job run dirs, the shared warm-start "
+                        "cache and serve_manifest.json live here")
+    p.add_argument("--host", default="127.0.0.1",
+                   help="TCP bind address (default 127.0.0.1)")
+    p.add_argument("--port", type=int, default=8642,
+                   help="TCP port (default 8642; 0 picks a free port)")
+    p.add_argument("--socket", dest="socket_path",
+                   help="serve on a Unix domain socket at this path "
+                        "instead of TCP")
+    p.add_argument("--queue-size", dest="queue_size", type=int, default=16,
+                   help="bounded work queue capacity; submissions past it "
+                        "get HTTP 503 (default 16)")
+    p.add_argument("--workers", type=int, default=None,
+                   help="worker threads executing jobs concurrently "
+                        "(default AUTOCYCLER_SERVE_WORKERS or "
+                        "min(4, cpu//2); more than one serializes device "
+                        "work through the device token)")
+
+    p = sub.add_parser("submit",
+                       help="submit one isolate job to a running "
+                            "`autocycler serve` daemon")
+    p.add_argument("-i", "--assemblies_dir", required=True)
+    p.add_argument("-a", "--out_dir",
+                   help="assembly output directory (default: the job's "
+                        "run dir under the daemon root)")
+    p.add_argument("--server",
+                   help="daemon endpoint URL (default: discovery via "
+                        "--dir, AUTOCYCLER_SERVE, or localhost:8642)")
+    p.add_argument("--socket", dest="socket_path",
+                   help="daemon Unix socket path")
+    p.add_argument("-d", "--dir", dest="serve_dir",
+                   help="daemon root — reads its serve.json discovery file")
+    p.add_argument("--fleet-dir", dest="fleet_dir",
+                   help="fleet dir of replica serve roots: route the job "
+                        "to the least-loaded healthy replica (probes each "
+                        "replica's /healthz; overrides --server/--dir)")
+    p.add_argument("--trace-id", dest="trace_id",
+                   help="correlation id to propagate (default: minted per "
+                        "submission; see `autocycler report --correlate`)")
+    p.add_argument("--command", dest="job_command", default="compress",
+                   choices=["compress", "pipeline"],
+                   help="compress only, or the full per-isolate pipeline "
+                        "(cluster + trim + resolve + combine)")
+    p.add_argument("-k", "--kmer", type=int, default=51)
+    p.add_argument("--max_contigs", type=int, default=25)
+    p.add_argument("-t", "--threads", type=int, default=8)
+    p.add_argument("--wait", action="store_true",
+                   help="block until the job finishes; exit 1 on failure")
+    p.add_argument("--follow", action="store_true",
+                   help="follow the job's span stream live (implies "
+                        "--wait; renders `autocycler watch` frames)")
+    p.add_argument("--timeout", type=float,
+                   help="--wait/--follow: give up after this many seconds")
 
     p = sub.add_parser("subsample", help="subsample a long-read set")
     p.add_argument("-r", "--reads", required=True)
@@ -155,6 +237,25 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max_unitigs", type=int, default=5000)
     p.add_argument("--mad", type=float, default=5.0)
     p.add_argument("-t", "--threads", type=int, default=8)
+
+    p = sub.add_parser("watch",
+                       help="follow another process's run live: tail a run "
+                            "directory's trace.jsonl and render the stage/"
+                            "isolate tree with QC highlights")
+    p.add_argument("run_dir",
+                   help="the run's AUTOCYCLER_TRACE_DIR directory "
+                        "(holds trace.jsonl)")
+    p.add_argument("--follow", action="store_true",
+                   help="keep polling and re-rendering until the run "
+                        "finishes (default: render once and exit)")
+    p.add_argument("--once", action="store_true",
+                   help="render the current state once and exit "
+                        "(the default; overrides --follow)")
+    p.add_argument("--interval", type=float, default=2.0,
+                   help="--follow poll interval in seconds (default 2)")
+    p.add_argument("--cycles", type=int,
+                   help="--follow: stop after this many polls even if the "
+                        "run has not finished")
     return parser
 
 
@@ -196,9 +297,29 @@ def dispatch(args) -> int:
                args.threads, args.dir, args.read_type, args.min_depth_abs,
                args.min_depth_rel, args.extra_args, timeout=args.timeout,
                retries=args.retries)
+    elif args.command == "report":
+        from .obs.report import report
+        return report(args.run_dir, as_json=args.json, html=args.html,
+                      correlate=args.correlate)
     elif args.command == "resolve":
         from .commands.resolve import resolve
         resolve(args.cluster_dir, args.verbose)
+    elif args.command == "serve":
+        from .serve.server import serve
+        return serve(args.serve_dir, host=args.host, port=args.port,
+                     workers=args.workers,
+                     socket_path=args.socket_path,
+                     queue_size=args.queue_size)
+    elif args.command == "submit":
+        from .serve.client import submit
+        return submit(args.assemblies_dir, server=args.server,
+                      socket_path=args.socket_path, serve_dir=args.serve_dir,
+                      fleet_dir=args.fleet_dir,
+                      command=args.job_command, out_dir=args.out_dir,
+                      kmer=args.kmer, max_contigs=args.max_contigs,
+                      threads=args.threads, wait=args.wait,
+                      follow=args.follow, timeout=args.timeout,
+                      trace_id=args.trace_id)
     elif args.command == "subsample":
         from .commands.subsample import subsample
         subsample(args.reads, args.out_dir, args.genome_size, args.count,
@@ -210,6 +331,10 @@ def dispatch(args) -> int:
         from .commands.trim import trim
         trim(args.cluster_dir, args.min_identity, args.max_unitigs, args.mad,
              args.threads)
+    elif args.command == "watch":
+        from .obs.watch import watch
+        return watch(args.run_dir, follow=args.follow and not args.once,
+                     interval=args.interval, cycles=args.cycles)
     return 0
 
 
@@ -224,16 +349,33 @@ GC_DISABLED_COMMANDS = frozenset({
 })
 
 
+# The commands that never own a trace run, the JAX package's list but for
+# the commands not ported yet (doctor, top, lint)
+NO_RUN_COMMANDS = frozenset({"report", "watch", "serve", "submit"})
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     import gc
     gc_disabled = args.command in GC_DISABLED_COMMANDS
     if gc_disabled:
         gc.disable()
-    from .obs import ledger, qc, trace
-    # every ported command may own a run: none of them only reads another
-    # run's record
-    owns_run = trace.maybe_start_run(name=args.command)
+    from .obs import ledger, qc, timeseries, trace
+    # `report` and `watch` read another run's record (tracing them would
+    # clobber what they render), `serve` owns one trace run per job and
+    # `submit` is a thin client: none of them owns a run
+    may_own_run = args.command not in NO_RUN_COMMANDS
+    # the time series rides the run dir beside the trace; the sampler
+    # starts before the run clock and stops after it, so its thread's start
+    # and join stay outside the run's wall
+    sampler = None
+    trace_target = (env_str("AUTOCYCLER_TRACE_DIR") or "").strip()
+    if may_own_run and trace_target and timeseries.timeseries_enabled():
+        sampler = timeseries.TimeseriesSampler(trace_target).start()
+    owns_run = may_own_run and trace.maybe_start_run(name=args.command)
+    if not owns_run and sampler is not None:
+        sampler.stop(final_sample=False)   # another run is already active
+        sampler = None
     if owns_run:
         qc.reset()
         ledger.reset()
@@ -250,12 +392,14 @@ def main(argv=None) -> int:
             if run_dir:
                 qc.write_qc_report(run_dir)
                 ledger.write_ledger(run_dir, command=args.command)
+        if sampler is not None:
+            sampler.stop()   # outside the run wall; takes the final tick
         metrics_path = env_str("AUTOCYCLER_METRICS")
         if metrics_path:
             trace.write_metrics_file(metrics_path)
         if gc_disabled:
             gc.enable()
-    return rc
+    return int(rc) if rc else 0
 
 
 if __name__ == "__main__":

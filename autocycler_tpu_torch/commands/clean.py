@@ -9,17 +9,13 @@ warm-start cache, as the JAX package's clean does.
 from __future__ import annotations
 
 import os
-from pathlib import Path
-from typing import List, Optional, Tuple
+from typing import List, Optional
 
 from ..models import UnitigGraph
 from ..models.simplify import merge_linear_paths
+from ..obs.timeseries import purge_timeseries
 from ..utils import log, quit_with_error
 from ..utils.cache import purge_cache
-
-# the continuous-telemetry series of the JAX package's run dirs and serve
-# roots (its obs/timeseries.py names)
-TIMESERIES_JSONL = "timeseries.jsonl"
 
 
 def parse_tig_numbers(tig_num_str: Optional[str]) -> List[int]:
@@ -33,28 +29,6 @@ def parse_tig_numbers(tig_num_str: Optional[str]) -> List[int]:
         except ValueError:
             quit_with_error(f"failed to parse '{token}' as a tig number")
     return sorted(out)
-
-
-def purge_timeseries(root) -> Tuple[int, int]:
-    """Delete the time-series artifacts under ``root``: the root's own
-    ``timeseries.jsonl`` (+ leftover rotation temp files) and each serve
-    job's. Returns (files removed, bytes reclaimed); missing dirs purge
-    nothing."""
-    root = Path(root)
-    removed = reclaimed = 0
-    patterns = (TIMESERIES_JSONL, TIMESERIES_JSONL + ".tmp*",
-                "jobs/*/" + TIMESERIES_JSONL,
-                "jobs/*/" + TIMESERIES_JSONL + ".tmp*")
-    for pattern in patterns:
-        for path in root.glob(pattern):
-            try:
-                size = path.stat().st_size
-                path.unlink()
-            except OSError:
-                continue
-            removed += 1
-            reclaimed += size
-    return removed, reclaimed
 
 
 def clean_cache(cache_dir) -> None:

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import os
 import shutil
+import threading
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
@@ -366,8 +367,8 @@ def generate_clusters(tree: TreeNode, sequences: List[Sequence],
         # the containment memo exists to serve the hill-climb's many score
         # evaluations above; release the dense matrix + dict reference when
         # clustering is done so a long batch run doesn't carry the largest
-        # isolate's S x S matrix to process exit (advisor r5)
-        _contain_cache.clear()
+        # isolate's S x S matrix to process exit
+        _contain_memo().clear()
 
 
 def qc_clusters(tree: TreeNode, sequences: List[Sequence],
@@ -444,24 +445,35 @@ def cluster_is_trusted(sequences: List[Sequence], c: int) -> bool:
 # containment counting: the refinement hill-climb scores many candidate
 # clusterings against the same distance dict, and rebuilding the dense
 # [S, S] matrix per score evaluation would reintroduce the O(S²)-per-call
-# Python constant this module just removed (advisor r5 finding). A hit
-# requires the SAME dict object (`is` against the held strong reference —
-# id() alone can alias two distinct dicts once the first is garbage
-# collected and its id recycled) plus equal cutoff and id tuple;
-# generate_clusters() clears the slot when clustering finishes.
-_contain_cache: Dict[str, object] = {}
+# Python constant this module just removed. A hit requires the SAME dict
+# object (`is` against the held strong reference — id() alone can alias two
+# distinct dicts once the first is garbage collected and its id recycled)
+# plus equal cutoff and id tuple; generate_clusters() clears the slot when
+# clustering finishes. The slot is per thread: the serve daemon clusters
+# several jobs at once, and a shared slot would hand one job another's
+# matrix (the JAX package's module-level slot has that race).
+_contain_local = threading.local()
+
+
+def _contain_memo() -> Dict[str, object]:
+    """The calling thread's containment memo slot."""
+    memo = getattr(_contain_local, "memo", None)
+    if memo is None:
+        memo = _contain_local.memo = {}
+    return memo
 
 
 def _contain_ab_cached(distances: Dict[Tuple[int, int], float],
                        cutoff: float, ids: Tuple[int, ...]) -> np.ndarray:
+    memo = _contain_memo()
     key = (cutoff, ids)
-    if _contain_cache.get("distances_ref") is not distances \
-            or _contain_cache.get("key") != key:
-        pos = {a: i for i, a in enumerate(ids)}
-        D = _distances_to_matrix(distances, pos, len(ids))
-        _contain_cache.update(key=key, distances_ref=distances,
-                              contain_ab=(D < D.T) & (D < cutoff))
-    return _contain_cache["contain_ab"]  # type: ignore[return-value]
+    if memo.get("distances_ref") is distances and memo.get("key") == key:
+        return memo["contain_ab"]  # type: ignore[return-value]
+    pos = {a: i for i, a in enumerate(ids)}
+    D = _distances_to_matrix(distances, pos, len(ids))
+    contain_ab = (D < D.T) & (D < cutoff)
+    memo.update(key=key, distances_ref=distances, contain_ab=contain_ab)
+    return contain_ab
 
 
 def containment_counts(sequences: List[Sequence],

@@ -50,7 +50,8 @@ LEDGER_JSON = "ledger.json"
 SCHEMA = 1
 
 _lock = threading.Lock()
-# input table keyed (isolate scope, path)
+# input table keyed (isolate scope, path): concurrent serve jobs hashing
+# the same input files never clobber each other's lineage rows
 _inputs: Dict[tuple, dict] = {}
 _stages: List[dict] = []
 
@@ -59,6 +60,26 @@ def reset() -> None:
     with _lock:
         _inputs.clear()
         _stages.clear()
+
+
+def _in_scope(iso, scope_name: str) -> bool:
+    return iso == scope_name or (isinstance(iso, str)
+                                 and iso.startswith(scope_name + "/"))
+
+
+def drain_scope(scope_name: str) -> int:
+    """Drop every input/stage entry tagged with ``scope_name`` (the serve
+    daemon drains each job after its ledger is written, keeping the
+    process-wide tables bounded). Returns the count removed."""
+    with _lock:
+        doomed = [k for k in _inputs if _in_scope(k[0], scope_name)]
+        for k in doomed:
+            del _inputs[k]
+        keep = [s for s in _stages if not _in_scope(s.get("isolate"),
+                                                    scope_name)]
+        removed = len(doomed) + (len(_stages) - len(keep))
+        _stages[:] = keep
+    return removed
 
 
 def artifact_hash(path) -> Optional[dict]:
@@ -176,11 +197,18 @@ def _cache_lineage() -> dict:
     return lineage
 
 
-def build_ledger(command: Optional[str] = None) -> dict:
-    """The full ledger payload."""
+def build_ledger(command: Optional[str] = None,
+                 scope: Optional[str] = None,
+                 trace_id: Optional[str] = None) -> dict:
+    """The full ledger payload. With ``scope``, only inputs and stage
+    entries tagged with that isolate scope are included: each concurrent
+    serve job's ledger carries its own lineage. ``trace_id`` (the
+    submission's correlation id) is recorded as an additive key."""
     with _lock:
-        inputs = {key[1]: dict(digest) for key, digest in _inputs.items()}
-        stages = [dict(s) for s in _stages]
+        inputs = {key[1]: dict(digest) for key, digest in _inputs.items()
+                  if scope is None or _in_scope(key[0], scope)}
+        stages = [dict(s) for s in _stages
+                  if scope is None or _in_scope(s.get("isolate"), scope)]
     ledger = {
         "schema": SCHEMA,
         "created_epoch": round(time.time(), 3),
@@ -192,14 +220,19 @@ def build_ledger(command: Optional[str] = None) -> dict:
     }
     if command:
         ledger["command"] = command
+    if trace_id:
+        ledger["trace_id"] = trace_id
     return ledger
 
 
-def write_ledger(run_dir, command: Optional[str] = None) -> Optional[Path]:
+def write_ledger(run_dir, command: Optional[str] = None,
+                 scope: Optional[str] = None,
+                 trace_id: Optional[str] = None) -> Optional[Path]:
     """Write ``ledger.json`` atomically (tempfile + rename — a reader or a
     crash never sees a torn ledger). Returns the path, or None when there
-    is nothing to record or the write failed."""
-    payload = build_ledger(command)
+    is nothing to record or the write failed. ``scope`` filters to one
+    isolate scope's entries (see :func:`build_ledger`)."""
+    payload = build_ledger(command, scope=scope, trace_id=trace_id)
     if not payload["inputs"] and not payload["stages"]:
         return None
     path = Path(run_dir) / LEDGER_JSON

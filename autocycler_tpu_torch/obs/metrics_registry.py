@@ -3,7 +3,8 @@ as the JAX package's obs/metrics_registry.py keeps them.
 
 The run-level accounting of the port writes here: ``utils.timing``'s stage
 and substage seconds, ``utils.cache``'s hit and miss counters and the QC
-gauges of ``obs.qc``. One snapshot answers "what did this run count?" for
+gauges of ``obs.qc``, and the serve daemon's job, queue, SLO and
+device-token series. One snapshot answers "what did this run count?" for
 ``metrics.json`` in a trace run dir and for ``AUTOCYCLER_METRICS``.
 
 Exports: :meth:`MetricsRegistry.snapshot` (JSON-able dict) and
@@ -57,7 +58,7 @@ class _Metric:
 
     def __init__(self, name: str, kind: str, help: str = ""):
         self.name = name
-        self.kind = kind          # "counter" | "gauge" | "histogram"
+        self.kind = kind          # "counter" | "gauge" | "histogram" | "info"
         self.help = help
         self.series: Dict[_LabelKey, object] = {}
 
@@ -103,6 +104,14 @@ class MetricsRegistry:
         with self._lock:
             m = self._metric(name, "gauge", help)
             m.series[_label_key(labels)] = float(value)
+
+    def info_set(self, name: str, text: str, help: str = "",
+                 **labels) -> None:
+        """A string-valued sample (e.g. the daemon's build). Exported to
+        JSON verbatim and to Prometheus as a ``value="..."``-labelled 1."""
+        with self._lock:
+            m = self._metric(name, "info", help)
+            m.series[_label_key(labels)] = str(text)
 
     def observe(self, name: str, value: float, help: str = "",
                 buckets: Optional[Tuple[float, ...]] = None,
@@ -154,6 +163,36 @@ class MetricsRegistry:
                         out[v] = val
         return out
 
+    def quantile(self, name: str, q: float, **labels) -> Optional[float]:
+        """Streaming quantile estimate from one histogram series: walk the
+        cumulative bucket counts to the bucket holding the ``q``-th
+        observation and interpolate linearly inside it, clamped to the
+        recorded [min, max]. None when the series is absent or empty."""
+        if not 0.0 <= q <= 1.0:
+            raise ValueError(f"quantile must be in [0, 1], got {q}")
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None or m.kind != "histogram":
+                return None
+            state = m.series.get(_label_key(labels))
+            if not isinstance(state, dict) or not state["count"]:
+                return None
+            edges = list(state["buckets"])
+            counts = list(state["counts"])
+            lo, hi = state["min"], state["max"]
+            count = state["count"]
+        target = q * count
+        cum = 0.0
+        prev_edge = 0.0
+        for edge, c in zip(edges + [hi], counts):
+            if c and cum + c >= target:
+                frac = (target - cum) / c
+                est = prev_edge + frac * (max(edge, prev_edge) - prev_edge)
+                return min(max(est, lo), hi)
+            cum += c
+            prev_edge = edge
+        return hi
+
     def snapshot(self) -> dict:
         """JSON-able {metric name: {"type", "help", "values": [...]}} where
         each value entry carries its labels dict and value (histograms: the
@@ -187,14 +226,16 @@ class MetricsRegistry:
     def to_prometheus(self) -> str:
         """Prometheus text exposition format (0.0.4). Counters/gauges export
         one sample per label set; histograms export cumulative ``_bucket``
-        samples plus ``_sum``/``_count``."""
+        samples plus ``_sum``/``_count``; info metrics export a gauge 1 with
+        the text riding in a ``value`` label."""
         lines: List[str] = []
         with self._lock:
             for name in sorted(self._metrics):
                 m = self._metrics[name]
                 if m.help:
                     lines.append(f"# HELP {name} {m.help}")
-                lines.append(f"# TYPE {name} {m.kind}")
+                kind = {"info": "gauge"}.get(m.kind, m.kind)
+                lines.append(f"# TYPE {name} {kind}")
                 for key in sorted(m.series):
                     val = m.series[key]
                     if m.kind == "histogram":
@@ -209,6 +250,9 @@ class MetricsRegistry:
                                                   round(val["sum"], 6)))
                         lines.append(_prom_sample(f"{name}_count", key,
                                                   val["count"]))
+                    elif m.kind == "info":
+                        lines.append(_prom_sample(
+                            name, key + (("value", str(val)),), 1))
                     else:
                         v = round(val, 6) if isinstance(val, float) else val
                         lines.append(_prom_sample(name, key, v))
@@ -238,9 +282,17 @@ def gauge_set(name: str, value: float, help: str = "", **labels) -> None:
     _registry.gauge_set(name, value, help=help, **labels)
 
 
+def info_set(name: str, text: str, help: str = "", **labels) -> None:
+    _registry.info_set(name, text, help=help, **labels)
+
+
 def observe(name: str, value: float, help: str = "",
             buckets: Optional[Tuple[float, ...]] = None, **labels) -> None:
     _registry.observe(name, value, help=help, buckets=buckets, **labels)
+
+
+def quantile(name: str, q: float, **labels) -> Optional[float]:
+    return _registry.quantile(name, q, **labels)
 
 
 def snapshot() -> dict:

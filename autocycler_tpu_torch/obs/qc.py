@@ -15,13 +15,14 @@ Every record is
 - registered in the metrics registry as ``autocycler_qc_<stage>_<key>``
   gauges (numeric scalars only).
 
-:func:`scope` tags the records of one isolate (the JAX package's ``batch``
-wraps each isolate's work in it). Collection is always on: the cost is a
+:func:`scope` tags the records of one isolate (``batch`` wraps each
+isolate's work in it, the serve daemon each job's). Collection is always on: the cost is a
 few dict updates per *stage*, not per item.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import tempfile
@@ -46,31 +47,81 @@ _scope = threading.local()
 
 
 def current_scope() -> Optional[str]:
-    """The active isolate scope (``autocycler batch``), or None."""
-    return getattr(_scope, "name", None)
+    """The active isolate scope, or None: a serve job's id, an isolate's
+    name (``batch``), or both as ``<job>/<isolate>`` when a serve job runs
+    a fleet batch."""
+    job = getattr(_scope, "job", None)
+    name = getattr(_scope, "name", None)
+    if job is None or name is None or name == job:
+        return job if name is None else name
+    return f"{job}/{name}"
 
 
 class scope:
     """Context manager tagging every :func:`record` (and ledger entry)
-    inside it with an isolate name — `batch` wraps each isolate's phases."""
+    inside it with an isolate name — `batch` wraps each isolate's phases.
+    Inside a :class:`job_scope` the tag is ``<job>/<name>``."""
 
-    def __init__(self, name: str):
+    _attr = "name"
+
+    def __init__(self, name: Optional[str]):
         self.name = name
 
     def __enter__(self):
-        self._prev = getattr(_scope, "name", None)
-        _scope.name = self.name
+        self._prev = getattr(_scope, self._attr, None)
+        setattr(_scope, self._attr, self.name)
         return self
 
     def __exit__(self, *exc):
-        _scope.name = self._prev
+        setattr(_scope, self._attr, self._prev)
         return False
+
+
+class job_scope(scope):
+    """The serve scheduler's scope of one job: every record inside it is
+    tagged with the job id, and an isolate :class:`scope` opened inside it
+    (a fleet job's isolates) with ``<job>/<isolate>``, so the job's report
+    and :func:`drain_scope` take them all."""
+
+    _attr = "job"
+
+
+def scope_context():
+    """The calling thread's (job, isolate) scopes, for a pool task to run
+    under (:func:`restore_scope`); None when neither is set."""
+    ctx = (getattr(_scope, "job", None), getattr(_scope, "name", None))
+    return None if ctx == (None, None) else ctx
+
+
+@contextlib.contextmanager
+def restore_scope(ctx):
+    """Run the block under the scopes :func:`scope_context` captured."""
+    job, name = ctx
+    with job_scope(job), scope(name):
+        yield
 
 
 def reset() -> None:
     """Drop all journal entries (run start / test isolation)."""
     with _lock:
         _entries.clear()
+
+
+def _in_scope(entry: dict, scope_name: str) -> bool:
+    iso = entry.get("isolate")
+    return iso == scope_name or (isinstance(iso, str)
+                                 and iso.startswith(scope_name + "/"))
+
+
+def drain_scope(scope_name: str) -> int:
+    """Drop every journal entry tagged with ``scope_name`` (a serve daemon
+    drains each job's entries after writing its report, so the process-wide
+    journal stays bounded over thousands of jobs). Returns the count."""
+    with _lock:
+        keep = [e for e in _entries if not _in_scope(e, scope_name)]
+        dropped = len(_entries) - len(keep)
+        _entries[:] = keep
+    return dropped
 
 
 def record(stage: str, cluster: Optional[str] = None, **metrics) -> dict:
@@ -154,16 +205,25 @@ def summary(journal: Optional[List[dict]] = None) -> dict:
     return out
 
 
-def write_qc_report(run_dir) -> Optional[Path]:
+def write_qc_report(run_dir, scope: Optional[str] = None,
+                    trace_id: Optional[str] = None) -> Optional[Path]:
     """Write ``qc_report.json`` (journal + summary) atomically into the run
     directory; returns the path (None on failure or empty journal —
-    telemetry never fails the pipeline)."""
+    telemetry never fails the pipeline). With ``scope``, only entries
+    tagged with that isolate scope are written: how concurrent serve jobs
+    each get a report of their own entries from the shared journal.
+    ``trace_id`` (the submission's correlation id) rides along as an
+    additive payload key."""
     with _lock:
-        selected = [dict(e) for e in _entries]
+        selected = [dict(e) for e in _entries
+                    if scope is None or _in_scope(e, scope)]
     if not selected:
         return None
     payload = {"schema": 1, "created_epoch": round(time.time(), 3),
-               "entries": selected, "summary": summary(selected)}
+               "entries": selected}
+    if trace_id:
+        payload["trace_id"] = trace_id
+    payload["summary"] = summary(selected)
     path = Path(run_dir) / QC_REPORT_JSON
     try:
         path.parent.mkdir(parents=True, exist_ok=True)

@@ -14,9 +14,18 @@ command, stage, substage and device granularity — to
   run end (JSON and Prometheus text format).
 
 Parent/child nesting is tracked per thread (a span opened inside a pool
-worker roots its own lane, as the Chrome viewer renders it). At most one
-run is active in a process. The JAX package's scoped runs, one per serve
-job, come with the serve daemon.
+worker roots its own lane, as the Chrome viewer renders it).
+
+Two kinds of run can be active at once:
+
+- the process-wide run (``start_run``/``finish_run``): the CLI's; at most
+  one exists, and a second ``start_run`` is an error;
+- *scoped* runs (``open_run``/``bind_run``/``close_run``): the serve
+  scheduler's, one per daemon job, bound to the thread(s) executing that
+  job (``utils.pool`` carries the binding into pool tasks), so N
+  concurrent jobs stream N disjoint ``trace.jsonl`` files from one
+  process. A thread with no bound run falls back to the process-wide run,
+  then, when exactly one scoped run is open, to that run.
 
 The disabled path is free: with no active run, :func:`span` returns a
 shared no-op context manager — no I/O, no per-call state — so tracing stays
@@ -43,8 +52,8 @@ METRICS_JSON = "metrics.json"
 METRICS_PROM = "metrics.prom"
 
 # spans kept in memory for the Chrome export; a run that somehow exceeds
-# this keeps streaming JSONL but stops growing the in-memory list, and
-# records how many were dropped
+# this (a pathological per-item span in a hot loop) keeps streaming JSONL
+# but stops growing the in-memory list, and records how many were dropped
 MAX_SPANS_IN_MEMORY = 200_000
 
 _lock = threading.Lock()
@@ -65,15 +74,63 @@ class _Run:
         self.next_id = 1
         self.dropped = 0
         self.tids = {}          # thread ident -> small stable lane number
-        self.lock = threading.Lock()   # id allocation + file writes
+        self.lock = threading.Lock()   # per-run: id allocation + file writes
         self.closed = False
 
 
 _run: Optional[_Run] = None
+_scoped_runs: List[_Run] = []
+
+
+def _active_run() -> Optional[_Run]:
+    """The run the current thread should record into: its bound scoped run,
+    else the process-wide run, else, when exactly one scoped run is open,
+    that run."""
+    run = getattr(_local, "run", None)
+    if run is not None and not run.closed:
+        return run
+    run = _run
+    if run is not None:
+        return run
+    scoped = _scoped_runs
+    if len(scoped) == 1:
+        return scoped[0]
+    return None
+
+
+class bind_run:
+    """Bind a scoped run to the current thread for the duration of the
+    ``with`` block: every :func:`span`, :func:`tracing_active` check and
+    ledger hook on this thread resolves to ``run``. Nestable; restores the
+    previous binding on exit."""
+
+    def __init__(self, run: _Run):
+        self.run = run
+
+    def __enter__(self):
+        self._prev = getattr(_local, "run", None)
+        _local.run = self.run
+        return self.run
+
+    def __exit__(self, *exc):
+        _local.run = self._prev
+        return False
+
+
+def current_run() -> Optional[_Run]:
+    """The run the calling thread would record into (see
+    :func:`_active_run`) — what pool helpers capture to propagate trace
+    context into worker threads."""
+    return _active_run()
 
 
 def tracing_active() -> bool:
-    return _run is not None
+    return _active_run() is not None
+
+
+def trace_dir() -> Optional[Path]:
+    run = _active_run()
+    return run.dir if run is not None else None
 
 
 class _NoopSpan:
@@ -92,7 +149,8 @@ NOOP_SPAN = _NoopSpan()
 
 
 def _stack(run: _Run) -> list:
-    """The per-thread span stack of ``run``."""
+    """The per-thread span stack of ``run``: nesting is tracked per
+    (thread, run) so concurrent scoped runs never parent across runs."""
     stacks = getattr(_local, "stacks", None)
     if stacks is None:
         stacks = _local.stacks = {}
@@ -112,7 +170,7 @@ class _Span:
         self.attrs = attrs
 
     def __enter__(self):
-        run = _run
+        run = _active_run()
         if run is None or run.closed:   # run finished before __enter__
             self.id = None
             self.run = None
@@ -181,13 +239,13 @@ def span(name: str, cat: str = "stage", **attrs):
     With no active run this is the shared :data:`NOOP_SPAN`. With a run
     active it records start offset, duration, parent span (per-thread
     nesting), category and ``attrs`` into the run's span stream."""
-    if _run is None:
+    if _active_run() is None:
         return NOOP_SPAN
     return _Span(name, cat, attrs)
 
 
 def current_span() -> Optional[_Span]:
-    run = _run
+    run = _active_run()
     if run is None:
         return None
     stacks = getattr(_local, "stacks", None)
@@ -195,24 +253,44 @@ def current_span() -> Optional[_Span]:
     return stack[-1] if stack else None
 
 
+def _create_run(trace_dir, name: str, trace_id: Optional[str] = None) -> _Run:
+    trace_dir = Path(trace_dir)
+    trace_dir.mkdir(parents=True, exist_ok=True)
+    run = _Run(trace_dir, name)
+    header = {"type": "run", "name": name, "t0_epoch": run.t0_epoch,
+              "pid": os.getpid(), "argv": list(sys.argv)}
+    if trace_id:
+        # cross-process correlation id (X-Autocycler-Trace)
+        header["trace_id"] = trace_id
+    run.file.write(json.dumps(header) + "\n")
+    run.file.flush()
+    return run
+
+
 def start_run(trace_dir, name: str = "run") -> Path:
     """Begin recording the process-wide run into ``trace_dir`` (created if
     needed). Returns the directory. A second start while a run is active is
-    an error: the CLI owns the run lifecycle."""
+    an error — finish the first (the CLI owns the run lifecycle)."""
     global _run
     with _lock:
         if _run is not None:
             raise RuntimeError(
                 f"a trace run is already active in {_run.dir}")
-        trace_dir = Path(trace_dir)
-        trace_dir.mkdir(parents=True, exist_ok=True)
-        run = _Run(trace_dir, name)
-        header = {"type": "run", "name": name, "t0_epoch": run.t0_epoch,
-                  "pid": os.getpid(), "argv": list(sys.argv)}
-        run.file.write(json.dumps(header) + "\n")
-        run.file.flush()
-        _run = run
-        return run.dir
+        _run = _create_run(trace_dir, name)
+        return _run.dir
+
+
+def open_run(trace_dir, name: str = "run",
+             trace_id: Optional[str] = None) -> _Run:
+    """Open a *scoped* run: records like the process-wide run but does not
+    claim the process-wide slot, so any number can be open concurrently
+    (one per serve job). Threads record into it via :class:`bind_run`;
+    finish it with :func:`close_run`. ``trace_id`` (a client correlation
+    id) lands in the run header."""
+    run = _create_run(trace_dir, name, trace_id=trace_id)
+    with _lock:
+        _scoped_runs.append(run)
+    return run
 
 
 def maybe_start_run(name: str = "run") -> bool:
@@ -231,19 +309,10 @@ def maybe_start_run(name: str = "run") -> bool:
         return False
 
 
-def finish_run() -> Optional[Path]:
-    """Close the run: write the finish record, the Chrome trace and the
-    metrics snapshot (JSON + Prometheus). Returns the run directory (None
-    when no run was active). Never raises on I/O problems — telemetry must
-    not fail the pipeline."""
-    global _run
-    with _lock:
-        run = _run
-        _run = None
-    if run is None:
-        return None
-    with run.lock:
-        run.closed = True
+def _finalize(run: _Run) -> Path:
+    """Write the finish record, the Chrome trace and the metrics snapshot
+    (JSON + Prometheus) for a run already removed from the active slots.
+    Never raises on I/O problems — telemetry must not fail the pipeline."""
     wall = time.perf_counter() - run.t0_perf
     footer = {"type": "finish", "wall": round(wall, 6),
               "spans": len(run.spans) + run.dropped, "dropped": run.dropped,
@@ -264,6 +333,34 @@ def finish_run() -> Optional[Path]:
     except OSError:
         pass
     return run.dir
+
+
+def finish_run() -> Optional[Path]:
+    """Close the process-wide run. Returns the run directory (None when no
+    run was active)."""
+    global _run
+    with _lock:
+        run = _run
+        _run = None
+    if run is None:
+        return None
+    with run.lock:
+        run.closed = True
+    return _finalize(run)
+
+
+def close_run(run: _Run) -> Optional[Path]:
+    """Close a scoped run opened with :func:`open_run`. Returns its
+    directory (None when already closed). In-flight spans of other threads
+    observe ``closed`` under the run lock and drop their records."""
+    with _lock:
+        if run in _scoped_runs:
+            _scoped_runs.remove(run)
+    with run.lock:
+        if run.closed:
+            return None
+        run.closed = True
+    return _finalize(run)
 
 
 def write_metrics_file(path) -> None:
@@ -294,12 +391,14 @@ def _write_chrome_trace(path: Path, spans: List[dict], name: str) -> None:
 
 
 def abort_run() -> None:
-    """Drop the active run without writing its artifacts (test isolation)."""
+    """Drop every active run (process-wide and scoped) without writing its
+    artifacts (test isolation)."""
     global _run
     with _lock:
-        run = _run
+        runs = ([_run] if _run is not None else []) + list(_scoped_runs)
         _run = None
-    if run is not None:
+        _scoped_runs.clear()
+    for run in runs:
         run.closed = True
         try:
             run.file.close()

@@ -33,6 +33,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..device import device_work
 from ..utils.timing import substage
 from .kmers import KmerIndex
 
@@ -135,8 +136,9 @@ def build_chains(index: KmerIndex) -> Chains:
 
     with substage("chains"):
         next_int = internal_edges(index)
-        members, chain_off, chain_is_cycle = chains_device(next_int,
-                                                           index.device)
+        with device_work("chain pointer doubling", index.device):
+            members, chain_off, chain_is_cycle = chains_device(
+                next_int, index.device)
 
     C = len(chain_off) - 1
     sizes = np.diff(chain_off)

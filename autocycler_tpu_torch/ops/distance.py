@@ -24,7 +24,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import device_work, resolve_device
 
 EXACT_FLOAT64 = 2**53
 
@@ -69,9 +69,10 @@ def intersections(M: np.ndarray, w: np.ndarray, device=None) -> np.ndarray:
     if Mw.size and int(Mw.sum(axis=-1).max()) >= EXACT_FLOAT64:
         raise ValueError("a contig's weighted path length reaches 2**53: the "
                          "float64 distance contraction would not be exact")
-    mw = torch.from_numpy(Mw).to(dev, torch.float64)
-    m = torch.from_numpy(M).to(dev, torch.float64)
-    return torch.matmul(mw, m.T).cpu().numpy().astype(np.int64)
+    with device_work("cluster distance matmul", dev):
+        mw = torch.from_numpy(Mw).to(dev, torch.float64)
+        m = torch.from_numpy(M).to(dev, torch.float64)
+        return torch.matmul(mw, m.T).cpu().numpy().astype(np.int64)
 
 
 def pairwise_contig_distances(graph, sequences, device=None

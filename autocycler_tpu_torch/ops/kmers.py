@@ -23,7 +23,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import device_work, resolve_device
 from ..utils.timing import substage
 from .encode import encode_bytes
 from .sortnet import INT32_MAX, pack_rank
@@ -362,7 +362,7 @@ def build_kmer_index(sequences, k: int, device=None,
         gram_gid = scatter_gid(gorder, ggid_sorted).long()
         G = int(ggid_sorted[-1]) + 1 if len(gram_starts) else 0
         rep_byte = _to_host(rep_byte_d)
-    with substage("adjacency"):
+    with substage("adjacency"), device_work("adjacency segment ops", dev):
         out_d, in_d, succ_d = adjacency(gram_gid[:U], gram_gid[U:], G)
         prefix_gid = _to_host(gram_gid[:U])
         suffix_gid = _to_host(gram_gid[U:])

@@ -23,7 +23,8 @@ from the forward bytes, so a hit is bit-identical to a cold run by
 construction. A cache never decides whether work runs on the device, only
 whether it runs at all. AUTOCYCLER_ENCODE_CACHE=0 disables them.
 
-A **shared cache directory** (``AUTOCYCLER_CACHE_DIR``) points every
+A **shared cache directory** (:func:`set_shared_cache_dir`, which the
+serve daemon calls, or ``AUTOCYCLER_CACHE_DIR``) points every
 :func:`open_cache` at one directory;
 entries are content-addressed, so sharing is safe. A **byte-budget LRU**
 (``AUTOCYCLER_CACHE_MAX_BYTES``, default 4 GiB, <= 0 disables) evicts
@@ -38,6 +39,7 @@ import io
 import json
 import os
 import tempfile
+import threading
 from pathlib import Path
 from typing import List, Optional, Tuple
 
@@ -53,9 +55,25 @@ CACHE_EVENTS = "autocycler_cache_events_total"
 CACHE_EVICTIONS = "autocycler_cache_evictions_total"
 CACHE_EVICTED_BYTES = "autocycler_cache_evicted_bytes_total"
 
+_shared_dir_lock = threading.Lock()
+_shared_dir: Optional[Path] = None
+
+
+def set_shared_cache_dir(path) -> None:
+    """Point every subsequent :func:`open_cache` at one directory (None
+    restores per-autocycler-dir caches). The serve daemon sets this once at
+    start so all jobs share warm-start entries."""
+    global _shared_dir
+    with _shared_dir_lock:
+        _shared_dir = None if path is None else Path(path)
+
+
 def shared_cache_dir() -> Optional[Path]:
-    """The shared cache directory ``AUTOCYCLER_CACHE_DIR`` names, or None
-    (per-dir caches)."""
+    """The active shared cache directory: the explicit setter wins, then
+    ``AUTOCYCLER_CACHE_DIR``, else None (per-dir caches)."""
+    with _shared_dir_lock:
+        if _shared_dir is not None:
+            return _shared_dir
     env = (env_str("AUTOCYCLER_CACHE_DIR") or "").strip()
     return Path(env) if env else None
 

@@ -47,6 +47,23 @@ DEFAULTS = {
     "AUTOCYCLER_FLEET_PREFETCH": 2,
     "AUTOCYCLER_FLEET_DEVICES": 0,
     "AUTOCYCLER_CRASH_POINTS": "",
+    # the run record's background sampler (timeseries.jsonl beside a trace
+    # run and in a serve root): on/off, seconds between ticks, ticks kept
+    "AUTOCYCLER_TIMESERIES": True,
+    "AUTOCYCLER_TIMESERIES_INTERVAL_S": 5.0,
+    "AUTOCYCLER_TIMESERIES_MAX": 2000,
+    # serve: submit's default endpoint, the worker count (unset:
+    # min(4, cpu // 2)), the bearer token (never logged), the latency
+    # objectives, the SLO window and the burn rate that sheds admissions
+    "AUTOCYCLER_SERVE": None,
+    "AUTOCYCLER_SERVE_WORKERS": None,
+    "AUTOCYCLER_SERVE_TOKEN": None,
+    "AUTOCYCLER_SLO_P50_S": None,
+    "AUTOCYCLER_SLO_P95_S": None,
+    "AUTOCYCLER_SLO_WINDOW_S": 3600.0,
+    "AUTOCYCLER_SLO_SHED_BURN": None,
+    # fleet federation: submit's router's probe timeout
+    "AUTOCYCLER_FED_TIMEOUT_S": 2.0,
 }
 
 

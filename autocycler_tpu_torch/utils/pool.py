@@ -3,18 +3,47 @@ JAX package's utils/pool.py has them: an order-preserving map (compress's
 assembly loads, trim's per-sequence work), a depth-bounded serial lane (the
 streamed grouping's pass-1 disk appends) and a read-ahead iterator (its
 pass-2 bin reads). Each keeps its input order, so what it produces is the
-same at every depth and worker count."""
+same at every depth and worker count. Each runs its tasks under the
+submitting thread's bound trace run and QC scope (:func:`_context_wrapper`),
+so a serve job's pooled work lands in that job's run dir."""
 
 from __future__ import annotations
 
+import contextlib
 import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Iterable, Iterator, List, Sequence
+from typing import Callable, Iterable, Iterator, List, Optional, Sequence
 
 _lock = threading.Lock()
 _executor = None
 _executor_width = 0
+
+
+def _context_wrapper() -> Optional[Callable]:
+    """Capture the submitting thread's observability context, its bound
+    trace run and QC scopes, as a ``wrap(fn)`` decorator replayed inside
+    pool threads, so spans, QC and ledger entries recorded by pooled work
+    belong to the job that submitted it (the serve scheduler runs N jobs
+    concurrently on the one shared executor). None when there is nothing
+    to carry (the CLI's path: no per-task cost)."""
+    from ..obs import qc, trace
+    run = trace.current_run()
+    scopes = qc.scope_context()
+    if run is None and scopes is None:
+        return None
+
+    def wrap(fn: Callable) -> Callable:
+        def call(*args, **kwargs):
+            with contextlib.ExitStack() as ctx:
+                if run is not None:
+                    ctx.enter_context(trace.bind_run(run))
+                if scopes is not None:
+                    ctx.enter_context(qc.restore_scope(scopes))
+                return fn(*args, **kwargs)
+        return call
+
+    return wrap
 
 
 def get_executor(workers: int) -> ThreadPoolExecutor:
@@ -48,6 +77,9 @@ class OrderedSubmitter:
 
     def submit(self, fn: Callable, *args) -> None:
         prev = self._prev
+        wrap = _context_wrapper()
+        if wrap is not None:
+            fn = wrap(fn)
 
         def job():
             if prev is not None:
@@ -81,6 +113,9 @@ def prefetch_iter(fn: Callable, items: Sequence, workers: int,
         for x in items:
             yield fn(x)
         return
+    wrap = _context_wrapper()
+    if wrap is not None:
+        fn = wrap(fn)
     pending: deque = deque()
     i = 0
     try:
@@ -100,4 +135,7 @@ def pool_map(fn: Callable, items: Iterable, workers: int) -> List:
     items = list(items)
     if workers <= 1 or len(items) <= 1:
         return [fn(x) for x in items]
+    wrap = _context_wrapper()
+    if wrap is not None:
+        fn = wrap(fn)
     return list(get_executor(workers).map(fn, items))

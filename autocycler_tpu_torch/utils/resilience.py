@@ -458,8 +458,9 @@ def read_manifest(path) -> dict:
 
 class RunManifest:
     """A JSON manifest of per-item status for a resumable multi-item run
-    (`batch` writes ``batch_manifest.json``), in the JAX package's schema,
-    so either package resumes the other's run.
+    (`batch` writes ``batch_manifest.json``, the serve daemon
+    ``serve_manifest.json``), in the JAX package's schema, so either
+    package resumes the other's run.
 
     Schema (version 1)::
 
@@ -472,7 +473,9 @@ class RunManifest:
                               "stages": {"<stage>": {
                                   "done": true,
                                   "outputs": {"<path>": {"sha256", "bytes"}},
-                                  "ts_epoch": <float>}}}}}
+                                  "ts_epoch": <float>}},
+                              # optional scheduler extras (job spec, ...)
+                              ...}}}
 
     Every mutation rewrites the file atomically (pid-tagged tmp + rename,
     previous state kept as ``<name>.bak``), so a run killed at any point
@@ -506,6 +509,11 @@ class RunManifest:
             entry = self.items.get(name)
             return entry["status"] if entry else None
 
+    def attempts(self, name: str) -> int:
+        with self._mu:
+            entry = self.items.get(name)
+            return entry["attempts"] if entry else 0
+
     def pending(self, name: str) -> None:
         with self._mu:
             self._entry(name)
@@ -517,6 +525,11 @@ class RunManifest:
             entry["status"] = "running"
             entry["attempts"] += 1
             entry["error"] = None
+            self.save()
+
+    def advance(self, name: str, stage: str) -> None:
+        with self._mu:
+            self._entry(name)["stage"] = stage
             self.save()
 
     def stage_done(self, name: str, stage: str, outputs=()) -> None:
@@ -558,6 +571,23 @@ class RunManifest:
                 return False
         return True
 
+    def stage_outputs(self, name: str, stage: str) -> Dict[str, dict]:
+        with self._mu:
+            entry = self.items.get(name) or {}
+            rec = (entry.get("stages") or {}).get(stage) or {}
+            return dict(rec.get("outputs") or {})
+
+    def last_stage(self, name: str) -> Optional[str]:
+        with self._mu:
+            entry = self.items.get(name) or {}
+            return entry.get("stage")
+
+    def annotate(self, name: str, **extra) -> None:
+        """Attach scheduler extras (job spec, out_dir, ...) to an entry."""
+        with self._mu:
+            self._entry(name).update(extra)
+            self.save()
+
     def done(self, name: str) -> None:
         with self._mu:
             entry = self._entry(name)
@@ -573,6 +603,13 @@ class RunManifest:
             if stage is not None:
                 entry["stage"] = stage
             self.save()
+
+    def counts(self) -> Dict[str, int]:
+        with self._mu:
+            out: Dict[str, int] = {}
+            for entry in self.items.values():
+                out[entry["status"]] = out.get(entry["status"], 0) + 1
+            return out
 
     def save(self) -> None:
         self.path.parent.mkdir(parents=True, exist_ok=True)

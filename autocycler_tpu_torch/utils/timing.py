@@ -11,13 +11,22 @@ is active. With ``AUTOCYCLER_TIMINGS=1`` each stage prints its time and the
 substages that ran inside it to stderr. Each stage or substage that ends
 with a device result copied to the host has waited for its device work, so
 its wall time includes that work.
+
+The device token (:func:`enable_device_token`, which the multi-worker
+serve scheduler turns on) serializes device work through one process-wide
+lock: ``device.py`` holds it across every kernel launch and torch-op
+dispatch, and across compress's adjacency and chains and cluster's
+distance product. Each block synchronises its stream before the token is
+released, so the token covers the device work itself and not only its
+enqueue. Off (the CLI, and a daemon of one worker) it adds nothing.
 """
 
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 from ..obs import metrics_registry, trace
 from . import log
@@ -28,6 +37,51 @@ from .misc import format_duration
 STAGE_SECONDS = "autocycler_stage_seconds_total"
 STAGE_LATENCY_HIST = "autocycler_stage_latency_seconds"
 SUBSTAGE_SECONDS = "autocycler_substage_seconds_total"
+DEVICE_TOKEN_WAIT = "autocycler_serve_device_token_wait_seconds_total"
+
+_token_lock = threading.RLock()
+_token_enabled = False
+
+
+def enable_device_token(enabled: bool) -> None:
+    """Turn device-work serialization on/off (the serve scheduler only)."""
+    global _token_enabled
+    with _token_lock:
+        _token_enabled = bool(enabled)
+
+
+def device_token_enabled() -> bool:
+    return _token_enabled
+
+
+@contextlib.contextmanager
+def device_token(kernel: str, sync: Optional[Callable[[], None]] = None):
+    """Hold the device token across one block of device work, counting the
+    wait into :data:`DEVICE_TOKEN_WAIT` (per kernel). ``sync`` (the block's
+    stream synchronise) runs before the token is released, so the work
+    has finished on the device when the next holder starts. With the
+    token off this yields at once and ``sync`` is not called."""
+    if not _token_enabled:
+        yield
+        return
+    t0 = time.perf_counter()
+    _token_lock.acquire()
+    try:
+        metrics_registry.counter_inc(
+            DEVICE_TOKEN_WAIT, time.perf_counter() - t0,
+            help="seconds device dispatches waited for the serve device "
+                 "token", kernel=kernel)
+        yield
+        if sync is not None:
+            sync()
+    finally:
+        _token_lock.release()
+
+
+def token_wait_seconds() -> float:
+    """Seconds device work has waited for the token so far, all kernels."""
+    return sum(metrics_registry.registry().labeled(
+        DEVICE_TOKEN_WAIT, "kernel").values())
 
 
 @contextlib.contextmanager

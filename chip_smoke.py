@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --serve-costs    # only the daemon's cost A/B
 
 Phases (any failure exits non-zero, and the result lines are not printed):
 
@@ -35,7 +36,8 @@ Phases (any failure exits non-zero, and the result lines are not printed):
              end, through compress, cluster, trim (whose overlap DP must
              run on the card and cut every contig back to its replicon's
              length), resolve and combine (the same consensus); its
-             chromosome trim runs once more under the profiler. Each
+             compress (streamed, at half the headline's assemblies) and its
+             chromosome trim run once more under the profiler. Each
              path's kernels must have been launched in it. Two small
              inputs (start-end overlaps; a hairpin at both ends) also go
              through compress, cluster, dotplot, trim, resolve and combine
@@ -62,6 +64,34 @@ Phases (any failure exits non-zero, and the result lines are not printed):
              int64 product, and the sketch step at 96 x 12 x 1024 (k=21,
              4096 buckets) against the single-device step on the card and
              on CPU tensors, exact.
+   serve   — the daemon on the card in this process, over loopback HTTP:
+             ServeHandle(root, workers=2) with its process warmed as
+             `serve` warms it (a shared .cache under its root, both kernel
+             libraries loaded) and a sampler tick every 0.5 s. At once: two
+             cold headline-size jobs (-t 8, streamed), one a worker: the
+             headline ([main]'s assemblies dir) as a pipeline job and the
+             headline's configuration drawn from seed 8 as a compress job;
+             then a batch body of [batch]'s 7 small isolates as compress
+             child jobs and the corrupt isolate, queued behind them; then
+             the headline as a compress job, warm from the shared .cache;
+             then a fleet body of the 7 isolates as pipeline jobs. Every
+             file of the headline job equals [main]'s CLI file (2 circular
+             consensus records), the second job's GFA decompresses to its
+             inputs, each child's GFA [batch]'s serial run's, the fleet
+             job's files [batch]'s fleet run's; the two cold jobs' device
+             peak fits the card; the warm job hits 24 + 1 entries, launches
+             no end-repair grouping and peaks below the cold jobs; the
+             corrupt job fails while /healthz stays ok (workers 2, the
+             card's probe); every run dir holds its own trace (its trace id
+             in the header), QC and ledger; timeseries.jsonl ticks carry
+             device_bytes_in_use; /metrics shows done and failed jobs and
+             the token's wait; the grouping launches add up job by job;
+             POST /shutdown gives 200. Per job: queue wait, wall, stage and
+             substage seconds, grouping launches; then the token's wait,
+             the device peaks, memory_reserved, and the walls beside
+             [main]'s CLI walls. (`--serve-costs` runs only the daemon's
+             warm headline compress with the device token and the
+             collector each on and off, beside the CLI's.)
    warm    — the headline compress once more through the CLI into a fresh
              directory, AUTOCYCLER_CACHE_DIR at [main]'s .cache and
              AUTOCYCLER_TRACE_DIR set: [main]'s GFA and YAML, 24 parse hits,
@@ -757,7 +787,6 @@ def phase_main(work: Path):
         f"({time.perf_counter() - t0:.3f} s); "
         f"{(out / 'input_assemblies.yaml').read_text().count('- name:')} "
         "contigs in input_assemblies.yaml")
-    profile_compress(asm, work / "out_profiled", out)
     paths, plasmid_pair, dotplot_groupings = cluster_and_dotplot(work, out)
     replicons = headline_replicons()
     runs = trim_resolve_combine("headline", out, replicons)
@@ -881,6 +910,9 @@ def overlap_configuration(work: Path, replicons) -> None:
     out = work / "overlap_out"
     run_cli("overlap compress", ["compress", "-i", asm, "-a", out,
                                  "--kmer", "51"])
+    # the streamed compress once more under the profiler, at half the
+    # headline's assemblies
+    profile_compress(asm, work / "overlap_profiled", out)
     run_cli("overlap cluster", ["cluster", "-a", out])
     clusters = sorted((out / "clustering" / "qc_pass").iterdir())
     if len(clusters) != 2:
@@ -908,6 +940,10 @@ def overlap_configuration(work: Path, replicons) -> None:
     profile_cli("overlap trim, chromosome cluster", ["trim", "-c", chromosome])
     if (chromosome / "2_trimmed.gfa").read_bytes() != trimmed:
         raise AssertionError("[profile] the profiled trim differs")
+
+
+# (phase, label, wall seconds) of every run_cli call, in order
+CLI_WALLS = []
 
 
 def run_cli(label: str, argv, phase: str = "main", expect_rc: int = 0) -> dict:
@@ -974,6 +1010,7 @@ def run_cli(label: str, argv, phase: str = "main", expect_rc: int = 0) -> dict:
         for n, d in dps.items() if d["dispatches"])
     stages = timing.stage_seconds()
     substages = timing.substage_snapshot()
+    CLI_WALLS.append((phase, label, wall))
     log(f"[{phase}] {label}: wall {wall} s, launches {launches}, kernel time "
         f"(ms, CUDA events) {json.dumps(kernel_ms)}, stages (s) "
         f"{json.dumps(stages)}, substages (s) "
@@ -1113,24 +1150,31 @@ def profile_cli(label: str, argv) -> None:
     from autocycler_tpu_torch import cli
 
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof, contextlib.redirect_stderr(io.StringIO()):
+    # the device's activity only: recording every host op too slowed the
+    # profiled run and took longer to read than the run itself
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            contextlib.redirect_stderr(io.StringIO()):
         rc = cli.main([str(a) for a in argv])
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if rc != 0:
         raise AssertionError(f"[profile] {label} exited {rc}")
+    # the raw events: prof.events() builds the host-side tree first, which
+    # took longer than the profiled run itself
+    t0 = time.perf_counter()
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns() / 1e3
+    read_s = time.perf_counter() - t0
     busy_s = sum(by_name.values()) / 1e6
     if busy_s == 0:
         log(f"[profile] {label}: device busy time not measured (no device "
             "events)")
         return
     log(f"[profile] {label}: wall {wall} s under the profiler, device busy "
-        f"{busy_s} s (kernels + copies), idle share {1 - busy_s / wall}")
+        f"{busy_s} s (kernels + copies), idle share {1 - busy_s / wall}; "
+        f"the trace read in {read_s:.3f} s")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     for name, us in top:
         log(f"[profile]   {us / 1e6} s  {name[:100]}")
@@ -1138,7 +1182,8 @@ def profile_cli(label: str, argv) -> None:
 
 def profile_compress(asm: Path, out: Path, expected: Path) -> None:
     """The profiled compress must write the same bytes as the counted one."""
-    profile_cli("compress", ["compress", "-i", asm, "-a", out, "--kmer", "51"])
+    profile_cli("overlap compress", ["compress", "-i", asm, "-a", out,
+                                     "--kmer", "51"])
     if not _same_files(out, expected):
         raise AssertionError("[profile] profiled compress differs from the "
                              "counted one")
@@ -1503,6 +1548,367 @@ def phase_batch(work: Path) -> None:
         f"{four.shape} mesh of cuda:0: bitwise equal (float32) to the "
         "single-device step on the card and on CPU tensors")
     return {name: run["summary"] for name, run in runs.items()}
+
+
+# [serve]: the daemon's workers, the sampler's tick (s) and each wait's cap
+SERVE_WORKERS = 2
+SERVE_TICK_S = "0.5"
+SERVE_JOB_TIMEOUT_S = 900.0
+# the second headline-size job's input: the headline's configuration drawn
+# from another seed, so that it is as cold as the headline's own
+SERVE_SECOND_SEED = 8
+
+
+def _job_summary(record: dict) -> dict:
+    """A finished job's queue wait, wall, stage and substage seconds and
+    grouping launches, read from its record and its own trace.jsonl."""
+    run_dir = Path(record["run_dir"])
+    seconds = {"stage": {}, "substage": {}}
+    launches = 0
+    for r in _trace_records(run_dir):
+        if r.get("type") != "span":
+            continue
+        if r["cat"] in seconds:
+            into = seconds[r["cat"]]
+            into[r["name"]] = round(into.get(r["name"], 0.0) + r["dur"], 6)
+        elif r["cat"] == "device" and r["name"] == "sortnet_pack_rank":
+            launches += 1
+    return {"job": record["id"], "state": record["state"],
+            "queue_wait_s": record["queue_wait_s"], "wall_s": record["wall_s"],
+            "stages_s": seconds["stage"], "substages_s": seconds["substage"],
+            "grouping_launches": launches}
+
+
+def _check_job_run_dir(record: dict, trace_id: str, done: bool) -> None:
+    """The job's run dir holds its own record: the trace's header carries
+    its trace id and no other job's span; a done job's QC report and
+    ledger hold only entries of its own scope."""
+    job, run_dir = record["id"], Path(record["run_dir"])
+    records = _trace_records(run_dir)
+    header = records[0]
+    jobs = {r["name"] for r in records
+            if r.get("type") == "span" and r["name"].startswith("job/")}
+    if header.get("type") != "run" or header.get("trace_id") != trace_id \
+            or jobs != {f"job/{job}"}:
+        raise AssertionError(f"[serve] {job} trace: header {header}, job "
+                             f"spans {sorted(jobs)}")
+    if not done:
+        return
+
+    def mine(iso) -> bool:
+        return iso == job or (isinstance(iso, str)
+                              and iso.startswith(job + "/"))
+
+    qc = json.loads((run_dir / "qc_report.json").read_text())
+    ledger = json.loads((run_dir / "ledger.json").read_text())
+    if not qc["entries"] or not all(mine(e.get("isolate"))
+                                    for e in qc["entries"]) \
+            or qc.get("trace_id") != trace_id:
+        raise AssertionError(f"[serve] {job} qc_report: "
+                             f"{[e.get('isolate') for e in qc['entries']]}")
+    if not ledger["stages"] or not all(mine(e.get("isolate"))
+                                       for e in ledger["stages"]) \
+            or ledger.get("trace_id") != trace_id:
+        raise AssertionError(f"[serve] {job} ledger: "
+                             f"{[e.get('isolate') for e in ledger['stages']]}")
+
+
+def _out_files(out: Path) -> dict:
+    """{relative path: bytes} under a job's or isolate's out dir, the
+    warm-start cache left out (the daemon's is shared under its root)."""
+    return {str(f.relative_to(out)): f.read_bytes()
+            for f in sorted(out.rglob("*"))
+            if f.is_file() and ".cache" not in f.relative_to(out).parts}
+
+
+def _serve_jobs(handle, headline: Path, second: Path, parent: Path, small,
+                fleet_out: Path) -> dict:
+    """[serve]'s submissions to the running daemon, in order: the two cold
+    headline-size jobs (the headline as a pipeline job, ``second`` as a
+    compress job), the small isolates' compress batch and the corrupt
+    isolate at once; then the warm headline compress; then the fleet body.
+    Returns the finished records and what was read around them (device
+    peaks, cache events, /healthz, /metrics, the shutdown's status)."""
+    from autocycler_tpu_torch.serve.client import request_json, wait_for_job
+    from autocycler_tpu_torch.serve.protocol import TRACE_HEADER
+    from autocycler_tpu_torch.utils import cache
+
+    def post(body: dict, trace_id: str) -> dict:
+        status, record = request_json(handle.endpoint, "POST", "/jobs",
+                                      body=body,
+                                      headers={TRACE_HEADER: trace_id})
+        if status != 202:
+            raise AssertionError(f"[serve] POST /jobs {status}: {record}")
+        return record
+
+    def wait(job_id: str) -> dict:
+        return wait_for_job(handle.endpoint, job_id, poll_s=0.2,
+                            timeout=SERVE_JOB_TIMEOUT_S)
+
+    def events_since(before: dict) -> dict:
+        return {k: v - before[k] for k, v in cache.cache_stats().items()}
+
+    run = {}
+    t0 = time.perf_counter()
+    head = post({"assemblies_dir": str(headline), "command": "pipeline",
+                 "kmer": 51, "threads": 8}, "t-serve-headline")
+    head2 = post({"assemblies_dir": str(second), "command": "compress",
+                  "kmer": 51, "threads": 8}, "t-serve-second")
+    batch = post({"batch": [{"assemblies_dir": str(parent / n)}
+                            for n in small],
+                  "command": "compress", "kmer": 51, "threads": 8},
+                 "t-serve-batch")
+    bad = post({"assemblies_dir": str(parent / "iso_corrupt"),
+                "command": "compress", "threads": 8}, "t-serve-corrupt")
+    run["head"] = wait(head["id"])
+    run["head2"] = wait(head2["id"])
+    run["children"] = [wait(c["id"]) for c in batch["children"]]
+    run["bad"] = wait(bad["id"])
+    run["concurrent_s"] = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    run["concurrent_peak"] = torch.cuda.max_memory_allocated()
+    _, health = request_json(handle.endpoint, "GET", "/healthz")
+    if health["status"] != "ok" or health["workers"] != SERVE_WORKERS \
+            or health["probe"]["state"] != "attached" \
+            or health["probe"]["kind"] != "cuda":
+        raise AssertionError(f"[serve] /healthz {health}")
+
+    torch.cuda.reset_peak_memory_stats()
+    before = cache.cache_stats()
+    with groupings_launched(k=25) as repairs:
+        run["warm"] = wait(post({"assemblies_dir": str(headline),
+                                 "command": "compress", "kmer": 51,
+                                 "threads": 8}, "t-serve-warm")["id"])
+    torch.cuda.synchronize()
+    run["warm_peak"] = torch.cuda.max_memory_allocated()
+    run["warm_stats"] = events_since(before)
+    run["warm_bins"] = spill_bins()
+    run["repairs"] = repairs
+
+    before = cache.cache_stats()
+    run["fleet"] = wait(post({"batch": [{"assemblies_dir": str(parent / n),
+                                         "out_dir": str(fleet_out / n)}
+                                        for n in small],
+                              "command": "pipeline", "kmer": 51,
+                              "threads": 8, "fleet": True},
+                             "t-serve-fleet")["id"])
+    run["fleet_stats"] = events_since(before)
+    _, run["metrics"] = request_json(handle.endpoint, "GET", "/metrics")
+    _, run["health_end"] = request_json(handle.endpoint, "GET", "/healthz")
+    run["shutdown"], _ = request_json(handle.endpoint, "POST", "/shutdown")
+    return run
+
+
+def phase_serve(work: Path, cold: dict) -> dict:
+    """The daemon on the card, in this process, over loopback HTTP:
+    ``ServeHandle(root, workers=2)``, its process warmed as `autocycler
+    serve` warms it (the shared .cache under the root, both kernel
+    libraries loaded). At once: two cold headline-size jobs, one a worker
+    (the headline isolate as a pipeline job, and the headline's
+    configuration drawn from seed SERVE_SECOND_SEED as a compress job:
+    the device peak of a pipeline is its compress's), then a batch body
+    of 7 of bench_batch's
+    isolates as compress child jobs and [batch]'s corrupt isolate, queued
+    behind them; after those, the headline as a compress job again, warm
+    from the shared cache; then a fleet body of the 7 isolates as pipeline
+    jobs. The headline job's files must equal [main]'s CLI files, the
+    second job's GFA must decompress to its inputs, each child's GFA
+    [batch]'s serial run's, the fleet's files [batch]'s fleet run's; the
+    two cold jobs' device peak must fit the card; the warm job must hit
+    24 + 1 cache entries, launch no end-repair grouping and peak below the
+    cold jobs; the corrupt job fails while the daemon stays ok; every run
+    dir holds only its job's scope; the grouping launches add up."""
+    from synthetic import make_assemblies_fast
+
+    from autocycler_tpu_torch import cli, device
+    from autocycler_tpu_torch.serve.server import ServeHandle, warm_process
+    from autocycler_tpu_torch.utils import cache, timing
+
+    parent = work / "batch_isolates"
+    # [main]'s own assemblies dir: input_assemblies.yaml records its paths
+    headline = work / "headline" / "assemblies"
+    t0 = time.perf_counter()
+    second = make_assemblies_fast(work / "serve_second",
+                                  **{**HEADLINE, "seed": SERVE_SECOND_SEED})
+    log(f"[serve] second headline-size input generated in "
+        f"{time.perf_counter() - t0:.3f} s (seed {SERVE_SECOND_SEED})")
+    small = sorted(d.name for d in parent.iterdir()
+                   if d.name not in ("iso_headline", "iso_corrupt"))
+    root = work / "serve"
+    t0 = time.perf_counter()
+    warm_process(root)
+    log(f"[serve] process warmed in {time.perf_counter() - t0:.3f} s "
+        f"(shared cache {cache.shared_cache_dir()}, both kernel libraries "
+        f"loaded); probe {json.dumps(device.probe_report())}")
+    os.environ["AUTOCYCLER_TIMESERIES_INTERVAL_S"] = SERVE_TICK_S
+    device.reset_counts()
+    token_before = timing.token_wait_seconds()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the daemon logs every job to stderr, as `autocycler serve` does: kept
+    # here, and its tail printed if the phase fails
+    daemon_log = io.StringIO()
+    handle = None
+    try:
+        with contextlib.redirect_stderr(daemon_log):
+            handle = ServeHandle(root, port=0, workers=SERVE_WORKERS).start()
+            run = _serve_jobs(handle, headline, second, parent, small,
+                              root / "fleet_out")
+    except BaseException:
+        log(f"[serve] the daemon's log, last 6000 characters:\n"
+            f"{daemon_log.getvalue()[-6000:]}")
+        raise
+    finally:
+        if handle is not None:
+            handle.stop()
+        os.environ.pop("AUTOCYCLER_TIMESERIES_INTERVAL_S")
+        cache.set_shared_cache_dir(None)
+        timing.enable_device_token(False)
+    token_wait = timing.token_wait_seconds() - token_before
+    launches = device.launches["sortnet_pack_rank"]
+    head, head2, children, bad, warm, fleet = (run[k] for k in (
+        "head", "head2", "children", "bad", "warm", "fleet"))
+    health_end, warm_stats, fleet_stats = (run[k] for k in (
+        "health_end", "warm_stats", "fleet_stats"))
+    concurrent_peak, warm_peak = run["concurrent_peak"], run["warm_peak"]
+
+    if run["shutdown"] != 200:
+        raise AssertionError(f"[serve] POST /shutdown gave {run['shutdown']}")
+    states = {r["id"]: r["state"] for r in [head, head2, warm, fleet,
+                                             *children]}
+    if any(v != "done" for v in states.values()) or bad["state"] != "failed" \
+            or not bad["error"] or "device error" in bad["error"] \
+            or health_end["status"] != "ok":
+        raise AssertionError(f"[serve] states {states}, corrupt {bad}, "
+                             f"health {health_end['status']}")
+    for record, trace_id, done in (
+            [(head, "t-serve-headline", True),
+             (head2, "t-serve-second", True), (bad, "t-serve-corrupt", False),
+             (warm, "t-serve-warm", True), (fleet, "t-serve-fleet", True)]
+            + [(c, "t-serve-batch", True) for c in children]):
+        _check_job_run_dir(record, trace_id, done)
+
+    main_out = work / "out"
+    head_files = _out_files(Path(head["out_dir"]))
+    differ = [rel for rel, data in head_files.items()
+              if (main_out / rel).read_bytes() != data]
+    lines = head_files["consensus_assembly.fasta"].decode().splitlines()
+    if differ or len(head_files) < 12 or \
+            [("circular=true" in h) for h in lines[0::2]] != [True, True]:
+        raise AssertionError(f"[serve] headline job: {len(head_files)} "
+                             f"files, differ from [main]'s {differ}")
+    recon = work / "serve_second_recon"
+    with contextlib.redirect_stderr(io.StringIO()):
+        rc = cli.main(["decompress", "-i", str(Path(head2["out_dir"]) /
+                                               "input_assemblies.gfa"),
+                       "-o", str(recon)])
+    if rc != 0 or not _same_files(second, recon):
+        raise AssertionError("[serve] the second headline-size job's GFA "
+                             f"does not decompress to its inputs (exit {rc})")
+    for name, child in zip(small, children):
+        gfa = Path(child["out_dir"]) / "input_assemblies.gfa"
+        if gfa.read_bytes() != (work / "batch_serial" / name /
+                                "input_assemblies.gfa").read_bytes():
+            raise AssertionError(f"[serve] {child['id']} ({name}): GFA "
+                                 "differs from [batch]'s serial run's")
+    warm_out = Path(warm["out_dir"])
+    for name in ("input_assemblies.gfa", "input_assemblies.yaml"):
+        if (warm_out / name).read_bytes() != (main_out / name).read_bytes():
+            raise AssertionError(f"[serve] warm job: {name} differs from "
+                                 "[main]'s")
+    for name in small:
+        if _out_files(root / "fleet_out" / name) != \
+                _out_files(work / "batch_fleet" / name):
+            raise AssertionError(f"[serve] fleet job: {name}'s files differ "
+                                 "from [batch]'s fleet run's")
+
+    summaries = {"headline pipeline, cold": _job_summary(head),
+                 "second headline-size compress, cold": _job_summary(head2),
+                 **{f"compress {n}": _job_summary(c)
+                    for n, c in zip(small, children)},
+                 "corrupt compress": _job_summary(bad),
+                 "headline compress, warm": _job_summary(warm),
+                 f"fleet pipeline, {len(small)} isolates": _job_summary(fleet)}
+    for label, summary in summaries.items():
+        log(f"[serve] {label}: {json.dumps(summary)}")
+    counts = {label: s["grouping_launches"] for label, s in summaries.items()}
+    cold_launches = cold["launches"]["sortnet_pack_rank"]
+    # the second input has the headline's shape, so its stream plan and
+    # its launches are the headline's
+    expected = {"headline pipeline, cold": cold_launches,
+                "second headline-size compress, cold": cold_launches,
+                **{f"compress {n}": 3 for n in small},
+                "corrupt compress": 0,
+                "headline compress, warm": run["warm_bins"] + 2,
+                f"fleet pipeline, {len(small)} isolates":
+                    2 * len(small) + fleet_stats["repair_misses"]}
+    if warm_stats != {"parse_hits": 24, "parse_misses": 0, "repair_hits": 1,
+                      "repair_misses": 0} or run["repairs"] \
+            or counts != expected \
+            or launches != sum(expected.values()) \
+            or cold_launches != run["warm_bins"] + 3:
+        raise AssertionError(
+            f"[serve] warm cache events {warm_stats}, {len(run['repairs'])} "
+            f"end-repair groupings; grouping launches {counts} (phase "
+            f"{launches}), expected {expected}")
+    if warm_peak >= concurrent_peak:
+        raise AssertionError(f"[serve] warm job's device peak {warm_peak} B "
+                             f"not below the cold jobs' {concurrent_peak} B")
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    if concurrent_peak >= card_bytes:
+        raise AssertionError(f"[serve] the two cold jobs' device peak "
+                             f"{concurrent_peak} B exceeds the card's "
+                             f"{card_bytes} B")
+
+    text = run["metrics"].get("raw", "")
+    for needle in ('autocycler_serve_jobs_total{command="pipeline",'
+                   'state="done"}',
+                   'autocycler_serve_jobs_total{command="compress",'
+                   'state="failed"}',
+                   "autocycler_serve_device_token_wait_seconds_total{"):
+        if needle not in text:
+            raise AssertionError(f"[serve] /metrics lacks {needle}")
+    ticks = [json.loads(line) for line in
+             (root / "timeseries.jsonl").read_text().splitlines() if line]
+    if not any("device_bytes_in_use" in t for t in ticks):
+        raise AssertionError(f"[serve] timeseries.jsonl: {len(ticks)} ticks, "
+                             "none with device_bytes_in_use")
+
+    main_walls = {label: wall for phase, label, wall in CLI_WALLS
+                  if phase == "main" and (label == "compress" or
+                                          label == "cluster" or
+                                          label.startswith("headline "))}
+    result = {
+        "concurrent_phase_s": run["concurrent_s"],
+        "token_wait_s": token_wait,
+        "device_peak_bytes": {"two cold headline-size jobs at once":
+                                  concurrent_peak,
+                              "warm": warm_peak, "card": card_bytes},
+        "memory_reserved_bytes": torch.cuda.memory_reserved(),
+        "grouping_launches": launches,
+        "timeseries_ticks": len(ticks),
+        "cache_events": {"warm": warm_stats, "fleet": fleet_stats},
+        "walls_s": {"headline pipeline job": head["wall_s"],
+                    "second headline-size compress job": head2["wall_s"],
+                    "headline compress job, warm": warm["wall_s"],
+                    "main CLI": main_walls,
+                    "main CLI sum": sum(main_walls.values())},
+        "sampler": health_end["sampler"], "probe": health_end["probe"]}
+    log("[serve] the headline job wrote [main]'s files, the second "
+        "headline-size job a GFA that decompresses to its inputs, both cold "
+        "at once "
+        "within the card's memory; each child's GFA "
+        "[batch]'s serial run's, the fleet job [batch]'s fleet files; the "
+        "warm job hit 24 + 1 entries with no end-repair grouping; the corrupt "
+        "job failed while the daemon stayed ok; every run dir holds its own "
+        "job's scope: " + json.dumps(result))
+    return result
+
+
+def spill_bins() -> int:
+    """The bins of the last streamed grouping of this process."""
+    from autocycler_tpu_torch.stream import spill
+    return int(spill.last_run["bins"])
 
 
 # One CLI call in a fresh process: the resident set after torch's import
@@ -2573,6 +2979,123 @@ def phase_timing(paths, groupings, plasmid_pair, dotplot_groupings,
     return rows
 
 
+def serve_costs(work: Path) -> None:
+    """``--serve-costs``: where a daemon job loses time against the CLI.
+    The headline compress, warm from the daemon's shared .cache, as jobs
+    of one ``ServeHandle(root, workers=2)`` (a sampler tick every 0.5 s,
+    as in [serve]) with the device token on and off
+    (``enable_device_token``) and the collector on and off
+    (``gc.disable()`` around the job), each variant twice in the order
+    ABCD DCBA; and through the CLI (the token off, the collector off, as
+    the CLI runs compress) before and after them. Every run must write the
+    cold job's GFA and YAML. Prints each run's wall, stage and substage
+    seconds and token wait, then each variant's walls."""
+    import gc
+
+    from synthetic import make_assemblies_fast
+
+    from autocycler_tpu_torch.serve.client import request_json, wait_for_job
+    from autocycler_tpu_torch.serve.server import ServeHandle, warm_process
+    from autocycler_tpu_torch.utils import cache, timing
+
+    asm = make_assemblies_fast(work / "headline", **HEADLINE)
+    root = work / "serve"
+    warm_process(root)
+    os.environ["AUTOCYCLER_TIMESERIES_INTERVAL_S"] = SERVE_TICK_S
+    daemon_log = io.StringIO()
+    handle = None
+    runs = []
+
+    def job(label: str, token: bool, collector: bool) -> dict:
+        timing.enable_device_token(token)
+        waited = timing.token_wait_seconds()
+        if not collector:
+            gc.disable()
+        try:
+            status, record = request_json(
+                handle.endpoint, "POST", "/jobs",
+                body={"assemblies_dir": str(asm), "command": "compress",
+                      "kmer": 51, "threads": 8})
+            if status != 202:
+                raise AssertionError(f"[serve-costs] POST /jobs {status}: "
+                                     f"{record}")
+            record = wait_for_job(handle.endpoint, record["id"], poll_s=0.2,
+                                  timeout=SERVE_JOB_TIMEOUT_S)
+        finally:
+            gc.enable()
+        if record["state"] != "done":
+            raise AssertionError(f"[serve-costs] {label}: {record}")
+        summary = {"run": label, "token": token, "collector": collector,
+                   **_job_summary(record),
+                   "token_wait_s": timing.token_wait_seconds() - waited,
+                   "out": Path(record["out_dir"])}
+        runs.append(summary)
+        return summary
+
+    def cli_run(label: str) -> dict:
+        timing.enable_device_token(False)
+        out = work / label.replace(" ", "_")
+        run = run_cli(label, ["compress", "-i", asm, "-a", out, "--kmer",
+                              "51"], "serve-costs")
+        summary = {"run": label, "token": False, "collector": False,
+                   "wall_s": run["wall_s"], "stages_s": run["stages"],
+                   "substages_s": run["substages"], "out": out}
+        runs.append(summary)
+        return summary
+
+    variants = {"A": (True, True), "B": (False, True), "C": (True, False),
+                "D": (False, False)}
+    try:
+        with contextlib.redirect_stderr(daemon_log):
+            handle = ServeHandle(root, port=0, workers=SERVE_WORKERS).start()
+            cold = job("cold", True, True)
+            cli_run("CLI warm 1")
+            for name in "ABCDDCBA":
+                job(name, *variants[name])
+            cli_run("CLI warm 2")
+    except BaseException:
+        log(f"[serve-costs] the daemon's log, last 6000 characters:\n"
+            f"{daemon_log.getvalue()[-6000:]}")
+        raise
+    finally:
+        if handle is not None:
+            handle.stop()
+        os.environ.pop("AUTOCYCLER_TIMESERIES_INTERVAL_S")
+        cache.set_shared_cache_dir(None)
+        timing.enable_device_token(False)
+    for run in runs:
+        for name in ("input_assemblies.gfa", "input_assemblies.yaml"):
+            if (run["out"] / name).read_bytes() != \
+                    (cold["out"] / name).read_bytes():
+                raise AssertionError(f"[serve-costs] {run['run']}: {name} "
+                                     "differs from the cold job's")
+        log("[serve-costs] " + json.dumps(
+            {k: v for k, v in run.items() if k != "out"}))
+    walls = {f"{name}: token {'on' if t else 'off'}, collector "
+             f"{'on' if c else 'off'}": [r["wall_s"] for r in runs
+                                         if r["run"] == name]
+             for name, (t, c) in variants.items()}
+    walls["CLI (token off, collector off)"] = [
+        r["wall_s"] for r in runs if r["run"].startswith("CLI")]
+    log("[serve-costs] warm headline compress walls (s), the same GFA and "
+        "YAML in every run: " + json.dumps(walls))
+
+
+def serve_costs_main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    import autocycler_tpu_torch  # noqa: F401 — fails outside the repo
+    sys.path.insert(0, str(REPO / "tests"))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(f"[device] {smi}")
+    with tempfile.TemporaryDirectory() as td, _phase("serve-costs"):
+        serve_costs(Path(td))
+    return 0
+
+
 @contextlib.contextmanager
 def _phase(name: str):
     t0 = time.perf_counter()
@@ -2601,6 +3124,8 @@ def main() -> int:
                 Path(td))
         with _phase("batch"):
             batch_runs = phase_batch(Path(td))
+        with _phase("serve"):
+            phase_serve(Path(td), compressed)
         with _phase("warm"):
             phase_warm(Path(td), compressed)
         with _phase("tools"):
@@ -2629,4 +3154,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(serve_costs_main() if sys.argv[1:] == ["--serve-costs"]
+             else main())

@@ -82,7 +82,9 @@ def test_port_runs_compress_without_jax(tmp_path):
         "assert cli.main(['compress', '-i', "
         f"{str(asm)!r}, '-a', str(tmp / 'traced')]) == 0\n"
         "del os.environ['AUTOCYCLER_TRACE_DIR']\n"
-        "print('TRACED', sorted(p.name for p in (tmp / 'trace').iterdir()))\n"
+        "# timeseries.jsonl: only when the run outlasted a sampler tick\n"
+        "print('TRACED', sorted(p.name for p in (tmp / 'trace').iterdir()\n"
+        "                       if p.name != 'timeseries.jsonl'))\n"
         "reads = tmp / 'reads.fastq'\n"
         "reads.write_text(''.join(f'@r{i}\\n' + 'ACGT' * (50 + i) + '\\n+\\n'\n"
         "                         + 'I' * (200 + 4 * i) + '\\n' for i in range(40)))\n"
@@ -138,6 +140,12 @@ def test_port_runs_compress_without_jax(tmp_path):
 def test_no_port_file_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(f.relative_to(PORT)) for f in files if PORT in f.parents}
+    assert {f"serve/{m}.py" for m in ("__init__", "protocol", "slo",
+                                      "scheduler", "server", "client",
+                                      "router")} <= names
+    assert {f"obs/{m}.py" for m in ("timeseries", "report", "watch",
+                                    "federate")} <= names
     offenders = [str(f.relative_to(REPO)) for f in files
                  if FORBIDDEN_IMPORT.search(f.read_text())]
     assert offenders == []
@@ -262,3 +270,79 @@ def test_build_paths_are_git_ignored():
     for name in _build.SOURCES:
         assert (_build.CSRC_DIR / f"{name}.cu").is_file()
     assert set(_build.SOURCES) == {"sortnet", "match_grid"}
+
+
+def test_port_daemon_serves_a_job_without_jax(tmp_path):
+    """The port's daemon on the CPU, in a fresh process: one compress job
+    over HTTP, then shutdown, with neither jax nor the JAX package loaded."""
+    from synthetic import make_assemblies
+    asm = make_assemblies(tmp_path, n_assemblies=2, chromosome_len=3000,
+                          plasmid_len=500)
+    code = (
+        "import sys\n"
+        "from autocycler_tpu_torch.serve.server import ServeHandle\n"
+        "from autocycler_tpu_torch.serve.client import request_json, "
+        "wait_for_job\n"
+        f"h = ServeHandle({str(tmp_path / 'root')!r}, port=0, workers=2,\n"
+        "                device='cpu').start()\n"
+        "try:\n"
+        "    status, rec = request_json(h.endpoint, 'POST', '/jobs', body={\n"
+        f"        'assemblies_dir': {str(asm)!r}}})\n"
+        "    rec = wait_for_job(h.endpoint, rec['id'], poll_s=0.05, "
+        "timeout=120)\n"
+        "    print('JOB', status, rec['state'])\n"
+        "    print('SHUTDOWN', request_json(h.endpoint, 'POST', "
+        "'/shutdown')[0])\n"
+        "finally:\n"
+        "    h.stop()\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+        "       or m == 'autocycler_tpu' or m.startswith('autocycler_tpu.')]\n"
+        "print('LOADED', bad)\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO)] + ([os.environ["PYTHONPATH"]]
+                       if os.environ.get("PYTHONPATH") else [])))
+    res = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "JOB 202 done" in res.stdout and "SHUTDOWN 200" in res.stdout
+    assert "LOADED []" in res.stdout
+    assert (tmp_path / "root" / "jobs" / "job-000001" / "out" /
+            "input_assemblies.gfa").is_file()
+    assert not (tmp_path / "root" / "serve.json").exists()
+
+
+def test_serve_without_cuda_exits_1_before_binding(tmp_path, monkeypatch,
+                                                   capsys):
+    """`serve` with no card: exit 1 with Error:, no serve.json, no root."""
+    from autocycler_tpu_torch import cli
+    from autocycler_tpu_torch.serve.server import ServeHandle
+    from autocycler_tpu_torch.utils import AutocyclerError
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    root = tmp_path / "root"
+    assert cli.main(["serve", "-a", str(root), "--port", "0"]) == 1
+    err = capsys.readouterr().err
+    assert "Error:" in err and "CUDA" in err
+    assert not root.exists()
+    with pytest.raises(AutocyclerError, match="CUDA"):
+        ServeHandle(root, port=0)
+    assert not (root / "serve.json").exists()
+
+
+def test_submit_needs_no_cuda(tmp_path, monkeypatch, capsys):
+    """`submit` is a thin client: with no card it submits and waits."""
+    from synthetic import make_assemblies
+
+    from autocycler_tpu_torch import cli
+    from autocycler_tpu_torch.serve.server import ServeHandle
+    asm = make_assemblies(tmp_path, n_assemblies=2, chromosome_len=3000,
+                          plasmid_len=500)
+    handle = ServeHandle(tmp_path / "root", port=0, workers=1,
+                         device="cpu").start()
+    try:
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        assert cli.main(["submit", "-i", str(asm), "--dir",
+                         str(tmp_path / "root"), "--wait",
+                         "--timeout", "120"]) == 0
+    finally:
+        handle.stop()
+    assert "job-000001 done" in capsys.readouterr().err

@@ -464,7 +464,12 @@ def test_every_command_writes_its_run_record(traced_pipelines):
     _, _, runs = traced_pipelines
     assert len(runs["port"]) == 7 and set(runs["port"]) == set(runs["jax"])
     for run_dir in runs["port"].values():
-        assert sorted(p.name for p in run_dir.iterdir()) == RUN_FILES
+        # the sampler's series is there too when the command outlasted one
+        # tick (AUTOCYCLER_TIMESERIES_INTERVAL_S), as in the JAX package
+        names = sorted(p.name for p in run_dir.iterdir())
+        assert [n for n in names if n != "timeseries.jsonl"] == RUN_FILES
+        if "timeseries.jsonl" in names:
+            assert _load_jsonl(run_dir / "timeseries.jsonl")[0]["tick"] == 1
         records = _load_jsonl(run_dir / trace.TRACE_JSONL)
         assert records[0]["type"] == "run" and records[-1]["type"] == "finish"
         json.loads((run_dir / "metrics.json").read_text())
