@@ -11,8 +11,8 @@ is compress → cluster → trim → resolve (each QC-pass cluster) → combine;
 a user's pipeline puts ``helper`` and ``subsample`` before it and ``table``
 after it. ``serve`` runs that path as a daemon on the card (without one it
 fails with ``Error: ...`` and exit 1 before it binds a socket), ``submit``
-is its client and needs no card, and ``report`` and ``watch`` render a run
-dir.
+is its client and needs no card, ``report`` and ``watch`` render a run
+dir, and ``top`` a serve root (``--fleet``: a fleet dir of them).
 
 With ``AUTOCYCLER_TRACE_DIR`` set, a command writes its run record there:
 ``trace.jsonl`` (and ``trace.chrome.json``), ``metrics.json``/``.prom``,
@@ -231,6 +231,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-f", "--fields", default=DEFAULT_FIELDS)
     p.add_argument("-s", "--sigfigs", type=int, default=3)
 
+    p = sub.add_parser("top",
+                       help="live dashboard: queue depth and throughput "
+                            "sparklines, latency quantiles with the SLO "
+                            "verdict, cache hit-rate, the device/host split, "
+                            "the stream's spill and memory, from a serve "
+                            "root's (or run dir's) timeseries.jsonl and "
+                            "manifests")
+    p.add_argument("dir", nargs="?", default=".",
+                   help="serve root or run directory (default: cwd)")
+    p.add_argument("--follow", action="store_true",
+                   help="keep re-rendering every --interval seconds "
+                        "(default: render once and exit)")
+    p.add_argument("--once", action="store_true",
+                   help="render one frame and exit (the default; "
+                        "overrides --follow)")
+    p.add_argument("--interval", type=float, default=2.0,
+                   help="--follow refresh interval in seconds (default 2)")
+    p.add_argument("--cycles", type=int,
+                   help="--follow: stop after this many frames")
+    p.add_argument("--fleet", action="store_true",
+                   help="federated view: treat DIR as a fleet dir of "
+                        "replica serve roots, poll every replica's /healthz "
+                        "+ /metrics and render the merged snapshot with the "
+                        "scale verdict (writes fleet_status.json)")
+
     p = sub.add_parser("trim", help="trim contigs in a cluster")
     p.add_argument("-c", "--cluster_dir", required=True)
     p.add_argument("--min_identity", type=float, default=0.75)
@@ -327,6 +352,11 @@ def dispatch(args) -> int:
     elif args.command == "table":
         from .commands.table import table
         table(args.autocycler_dir, args.name, args.fields, args.sigfigs)
+    elif args.command == "top":
+        from .obs.top import top
+        return top(args.dir, follow=args.follow and not args.once,
+                   interval=args.interval, cycles=args.cycles,
+                   fleet=args.fleet)
     elif args.command == "trim":
         from .commands.trim import trim
         trim(args.cluster_dir, args.min_identity, args.max_unitigs, args.mad,
@@ -350,8 +380,8 @@ GC_DISABLED_COMMANDS = frozenset({
 
 
 # The commands that never own a trace run, the JAX package's list but for
-# the commands not ported yet (doctor, top, lint)
-NO_RUN_COMMANDS = frozenset({"report", "watch", "serve", "submit"})
+# the commands not ported yet (doctor, lint)
+NO_RUN_COMMANDS = frozenset({"report", "watch", "top", "serve", "submit"})
 
 
 def main(argv=None) -> int:
@@ -361,8 +391,8 @@ def main(argv=None) -> int:
     if gc_disabled:
         gc.disable()
     from .obs import ledger, qc, timeseries, trace
-    # `report` and `watch` read another run's record (tracing them would
-    # clobber what they render), `serve` owns one trace run per job and
+    # `report`, `watch` and `top` read another run's record (tracing them
+    # would clobber what they render), `serve` owns one trace run per job and
     # `submit` is a thin client: none of them owns a run
     may_own_run = args.command not in NO_RUN_COMMANDS
     # the time series rides the run dir beside the trace; the sampler
@@ -387,6 +417,11 @@ def main(argv=None) -> int:
         print(f"\nError: {e}", file=sys.stderr)
         return 1
     finally:
+        if may_own_run:
+            # the run's launches and dispatches reach the registry before
+            # its run dir and its metrics dump are written
+            from . import device
+            device.fold_records()
         if owns_run:
             run_dir = trace.finish_run()
             if run_dir:

@@ -39,8 +39,6 @@ from ..utils.cache import open_cache
 from ..utils.env import env_int, env_str
 from ..utils.timing import stage_timer
 
-SKETCH_MIN_CONTIGS = 256     # AUTOCYCLER_SKETCH_MIN_CONTIGS's default
-
 
 # ---------------- tree ----------------
 
@@ -726,14 +724,14 @@ def resolve_distance_mode(n_contigs: int) -> str:
     """'exact' | 'sketch' | 'verify' from AUTOCYCLER_SKETCH_DISTANCE, as the
     JAX package resolves it: 'auto' (the default) means sketch from
     AUTOCYCLER_SKETCH_MIN_CONTIGS contigs on."""
-    raw = env_str("AUTOCYCLER_SKETCH_DISTANCE", "auto").lower()
+    raw = env_str("AUTOCYCLER_SKETCH_DISTANCE").lower()
     if raw in ("0", "off", "false", "no", "exact"):
         return "exact"
     if raw in ("1", "on", "true", "yes", "sketch"):
         return "sketch"
     if raw == "verify":
         return "verify"
-    threshold = env_int("AUTOCYCLER_SKETCH_MIN_CONTIGS", SKETCH_MIN_CONTIGS)
+    threshold = env_int("AUTOCYCLER_SKETCH_MIN_CONTIGS")
     return "sketch" if n_contigs >= threshold else "exact"
 
 

@@ -32,7 +32,7 @@ from ..utils import (Spinner, check_threads, find_all_assemblies,
                      reverse_complement_bytes)
 from ..utils.cache import EncodeCache, content_hash, open_cache
 from ..utils.pool import pool_map
-from ..utils.resilience import record_degrade
+from ..utils.resilience import crash_point, record_degrade
 from ..utils.timing import stage_timer, substage
 
 MAX_INPUT_SEQUENCES = 32767  # position packing limit (reference compress.rs:112-114)
@@ -101,6 +101,9 @@ def compress(assemblies_dir, autocycler_dir, k_size: int = 51,
         _save_metrics(metrics, assembly_count, sequences, graph, out_yaml)
     qc.compress_qc(graph, sequences)
     ledger.record_stage("compress", outputs=[out_gfa, out_yaml])
+    # the artifacts are flushed but no caller's manifest has recorded the
+    # stage yet: a crash here re-runs compress on resume, to the same bytes
+    crash_point("post-stage", "compress")
 
     log.section_header("Finished!")
     log.explanation("You can now run autocycler cluster to group contigs based on their "

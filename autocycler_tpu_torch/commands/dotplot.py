@@ -339,7 +339,7 @@ def _find_font():
     5. `fc-match` if fontconfig's CLI is available.
     Falls back to PIL's bitmap font with a stderr note (labels then cannot
     scale)."""
-    override = env_str("AUTOCYCLER_DOTPLOT_FONT", "")
+    override = env_str("AUTOCYCLER_DOTPLOT_FONT")
     if override:
         if Path(override).is_file():
             return override

@@ -20,15 +20,31 @@ through
 on every device and its CUDA-event time on the card, under its own name,
 apart from the kernels' counters.
 
+Every launch, every DP dispatch and every :func:`device_work` block is
+also one *dispatch* of the run record, as each ``device_dispatch`` of the
+JAX package is: :func:`fold_records`, called once where a run ends (the
+CLI, before its run dir is written; the serve daemon, after each job,
+before the job's run dir), waits for the records' end events and writes
+their seconds into the metrics registry under the JAX package's names:
+``autocycler_device_seconds_total``, ``autocycler_device_dispatches_total``,
+``autocycler_device_dispatch_seconds`` (by ``what``) and
+``autocycler_device_kernel_seconds`` (by ``kernel`` and ``phase``, first
+or steady). On the card the seconds are the CUDA events'; off it they are
+the host's around the block (the work is synchronous there). The JAX
+package counts host-observed seconds on every device. A block that raises
+counts once in ``autocycler_device_failures_total`` and sets
+``autocycler_device_failure_last`` (``utils.timing.record_device_failure``),
+then raises on: the port has no fallback. On the CPU the kernel wrappers'
+plain versions are such blocks, under the kernel's name, and are not
+counted as launches.
+
 The serve daemon's device token (``utils.timing.enable_device_token``) is
 held across each launch and each dispatch, and across compress's
 adjacency and chains and cluster's distance product
 (:func:`device_work`); with the token on, each block synchronises its
-stream before the token passes on. A long-lived daemon folds the finished
-launches' and dispatches' records into the metrics registry's per-kernel
-histograms (:func:`fold_records`), which keeps them bounded; the launch
-counts stay until :func:`reset_counts`. :func:`probe_report` says what
-the card is and when it was attached, in the JAX package's probe shape.
+stream before the token passes on. The launch counts stay until
+:func:`reset_counts`. :func:`probe_report` says what the card is and when
+it was attached, in the JAX package's probe shape.
 """
 
 from __future__ import annotations
@@ -42,8 +58,6 @@ import torch
 
 from .obs import metrics_registry, trace
 from .utils import quit_with_error, timing
-
-DEVICE_KERNEL_HIST = "autocycler_device_kernel_seconds"
 
 # kernel name -> launches since the last reset_counts()
 launches: Dict[str, int] = {"sortnet_pack_rank": 0, "dotplot_match_grid": 0,
@@ -59,6 +73,15 @@ dp_dispatches: Dict[str, List[dict]] = {"trim_overlap_dp": [],
                                         "batch_membership_contraction": [],
                                         "fleet_membership_contraction": [],
                                         "batch_sketch_step": []}
+# device_work name -> one record per block since the last reset_counts():
+# on the card its CUDA events, off it its host seconds
+work_blocks: Dict[str, List[dict]] = {}
+# every launch, dispatch and block not folded into the registry yet:
+# {"what", "events" (on the card) or "host_s", "phase", "owner" (the trace
+# run it ran under), "item" and "source" (its entry in the lists above)}
+_unfolded: List[dict] = []
+# the names that have a record: a name's first record is "first"
+_first_seen: set = set()
 
 
 # what resolve_device saw of the card: when CUDA was first attached and
@@ -116,14 +139,88 @@ def _stream_sync(device: torch.device):
     return lambda: torch.cuda.current_stream(device).synchronize()
 
 
+def _note(what: str, item, source: list, events=None,
+          host_s: Optional[float] = None) -> None:
+    """Keeps one launch's, dispatch's or block's record for the next
+    :func:`fold_records`."""
+    with _count_lock:
+        phase = "steady" if what in _first_seen else "first"
+        _first_seen.add(what)
+        _unfolded.append({"what": what, "events": events, "host_s": host_s,
+                          "phase": phase, "owner": trace.current_run(),
+                          "item": item, "source": source})
+
+
+def _failed(what: str, e: BaseException) -> None:
+    timing.record_device_failure(f"{what} raised {type(e).__name__}: {e}",
+                                 exc=e)
+
+
+@contextlib.contextmanager
+def _host_timed(what: str):
+    """Times the block on the host: yields a dict that holds its
+    ``host_s`` once it ends (or raises, which is a device failure)."""
+    out: dict = {}
+    t0 = time.perf_counter()
+    try:
+        yield out
+    except Exception as e:
+        _failed(what, e)
+        raise
+    finally:
+        out["host_s"] = time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _event_timed(what: str, device: torch.device):
+    """Times with CUDA events everything enqueued on ``device``'s current
+    stream inside the block: yields a dict that holds the ``stream``, and
+    its ``events`` once the block ends (or raises, which is a device
+    failure)."""
+    out: dict = {}
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        out["stream"] = stream
+        try:
+            yield out
+        except Exception as e:
+            _failed(what, e)
+            raise
+        finally:
+            end.record(stream)
+            out["events"] = (start, end)
+
+
+def _timed(what: str, device: torch.device):
+    """CUDA events on the card, the host's clock off it."""
+    if device.type == "cuda":
+        return _event_timed(what, device)
+    return _host_timed(what)
+
+
 @contextlib.contextmanager
 def device_work(name: str, device: torch.device):
     """Device work that is neither a kernel launch nor a recorded dispatch
-    (compress's adjacency and chains, cluster's distance product): held
-    under the device token when it is on, and synchronised before the
-    token passes on."""
-    with timing.device_token(name, _stream_sync(device)):
-        yield
+    (compress's adjacency and chains, cluster's distance product, and off
+    the card the kernels' plain versions): one dispatch of the run record,
+    held under the device token when it is on, and synchronised before
+    the token passes on."""
+    record: dict = {}
+    with _count_lock:
+        source = work_blocks.setdefault(name, [])
+        source.append(record)
+    t: dict = {}
+    try:
+        with timing.device_token(name, _stream_sync(device)), \
+                trace.span(name, cat="device"), _timed(name, device) as t:
+            yield
+    finally:
+        record.update((key, t[key]) for key in ("events", "host_s")
+                      if key in t)
+        _note(name, record, source, t.get("events"), t.get("host_s"))
 
 
 @contextlib.contextmanager
@@ -131,16 +228,22 @@ def kernel_launch(name: str, device: torch.device):
     """One launch of kernel ``name``: counts it, and times with CUDA events
     everything enqueued on the current stream of ``device`` inside the
     block (a kernel made of several passes and their bookkeeping is one
-    launch). Yields the stream's handle for the C entry points."""
-    with timing.device_token(name, _stream_sync(device)), \
-            torch.cuda.device(device), trace.span(name, cat="device"):
-        stream = torch.cuda.current_stream()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record(stream)
-        yield stream.cuda_stream
-        end.record(stream)
-    record_launch(name, start, end)
+    launch). Yields the stream's handle for the C entry points. A launch
+    that raises is not counted, but is a dispatch and a device failure of
+    the run record."""
+    t: dict = {}
+    launched = False
+    try:
+        with timing.device_token(name, _stream_sync(device)), \
+                trace.span(name, cat="device"), \
+                _event_timed(name, device) as t:
+            yield t["stream"].cuda_stream
+        launched = True
+    finally:
+        if launched:
+            record_launch(name, *t["events"])
+        elif "events" in t:
+            _note(name, None, None, t["events"])
 
 
 def check(name: str, err: int) -> None:
@@ -161,9 +264,11 @@ def record_launch(name: str, start: torch.cuda.Event,
                   end: torch.cuda.Event) -> None:
     # batch's fleet runner repairs the next isolates' ends on pool threads
     # while the main thread builds a graph: both launch the grouping
+    pair = (start, end)
     with _count_lock:
         launches[name] += 1
-        _events[name].append((start, end))
+        _events[name].append(pair)
+    _note(name, pair, _events[name], pair)
 
 
 @contextlib.contextmanager
@@ -176,20 +281,16 @@ def dp_dispatch(name: str, device: torch.device, **shape):
         record["events"] = None         # in flight until the block ends
     with _count_lock:
         dp_dispatches[name].append(record)
-    if device.type != "cuda":
+    t: dict = {}
+    try:
         with timing.device_token(name, _stream_sync(device)), \
-                trace.span(name, cat="device"):
+                trace.span(name, cat="device"), _timed(name, device) as t:
             yield
-        return
-    with timing.device_token(name, _stream_sync(device)), \
-            torch.cuda.device(device), trace.span(name, cat="device"):
-        stream = torch.cuda.current_stream()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record(stream)
-        yield
-        end.record(stream)
-    record["events"] = (start, end)
+    finally:
+        if "events" in t:
+            record["events"] = t["events"]
+        _note(name, record, dp_dispatches[name], t.get("events"),
+              t.get("host_s"))
 
 
 def dp_summary(name: str) -> dict:
@@ -212,55 +313,83 @@ def dp_summary(name: str) -> dict:
     return {"dispatches": len(each), **totals, "each": each}
 
 
-def fold_records() -> int:
-    """Fold every finished launch's and dispatch's record into the
-    registry's per-kernel histogram (``autocycler_device_kernel_seconds``,
-    CUDA-event seconds) and drop it; records whose work has not finished
-    stay. The launch counts are left as they are. Returns the number of
-    records folded. The serve scheduler calls it after each job, so a
-    long-lived daemon keeps no per-launch state."""
-    folded: List[Tuple[str, Optional[float]]] = []
+def work_summary() -> Dict[str, dict]:
+    """The :func:`device_work` blocks since the last reset, by name: their
+    count and, on the card, their summed CUDA-event ``ms`` (synchronises)."""
+    out = {}
+    for name, records in work_blocks.items():
+        ms = 0.0
+        for r in records:
+            if r.get("events"):
+                r["events"][1].synchronize()
+                ms += r["events"][0].elapsed_time(r["events"][1])
+        out[name] = {"blocks": len(records), "ms": ms}
+    return out
+
+
+_ANY = object()
+
+
+def fold_records(owner=_ANY, drop: bool = False) -> int:
+    """Folds the records of every launch, dispatch and block not yet folded
+    (of the trace run ``owner`` only, when given) into the registry: waits
+    for their end events (one synchronise where the run ends, none in the
+    hot path), then counts each as one dispatch with its seconds. With
+    ``drop`` (the serve daemon, which keeps no per-launch state across
+    jobs) their entries also leave the launch, DP and block lists; the
+    launch counts stay. Returns the number of records folded."""
     with _count_lock:
-        for name, pairs in _events.items():
-            keep = []
-            for start, end in pairs:
-                if end.query():
-                    folded.append((name, start.elapsed_time(end) / 1e3))
-                else:
-                    keep.append((start, end))
-            pairs[:] = keep
-        for name, records in dp_dispatches.items():
-            keep = []
-            for r in records:
-                events = r.get("events", ())
-                if events == ():                # off the card
-                    folded.append((name, None))
-                elif events is not None and events[1].query():
-                    folded.append(
-                        (name, events[0].elapsed_time(events[1]) / 1e3))
-                else:
-                    keep.append(r)
-            records[:] = keep
-    for name, seconds in folded:
-        if seconds is not None:
-            metrics_registry.observe(
-                DEVICE_KERNEL_HIST, seconds,
-                help="per-kernel device seconds (CUDA events) of each "
-                     "launch or dispatch", kernel=name)
-        else:
-            metrics_registry.counter_inc(
-                "autocycler_device_dispatches_total", 1,
-                help="device dispatches off the card (no CUDA events)",
-                kernel=name)
-    return len(folded)
+        mine = [r for r in _unfolded if owner is _ANY or r["owner"] is owner]
+        if not mine:
+            return 0
+        ids = {id(r) for r in mine}
+        _unfolded[:] = [r for r in _unfolded if id(r) not in ids]
+    reg = metrics_registry.registry()
+    for r in mine:
+        seconds = r["host_s"]
+        if r["events"] is not None:
+            start, end = r["events"]
+            try:
+                end.synchronize()
+                seconds = start.elapsed_time(end) / 1e3
+            except RuntimeError:      # a block the card never finished
+                seconds = None
+        seconds = seconds or 0.0
+        reg.counter_inc(timing.DEVICE_SECONDS, seconds,
+                        help="device seconds of launches and dispatches "
+                             "(CUDA events on the card, host seconds off "
+                             "it)")
+        reg.counter_inc(timing.DEVICE_DISPATCHES, 1,
+                        help="device dispatch count")
+        reg.observe(timing.DEVICE_DISPATCH_HIST, seconds,
+                    help="per-dispatch device seconds", what=r["what"])
+        reg.observe(timing.DEVICE_KERNEL_HIST, seconds,
+                    help="per-kernel dispatch seconds, split first call "
+                         "vs steady state",
+                    kernel=r["what"], phase=r["phase"])
+    if drop:
+        with _count_lock:
+            gone: Dict[int, set] = {}
+            for r in mine:
+                if r["source"] is not None:
+                    gone.setdefault(id(r["source"]), set()).add(id(r["item"]))
+            for source in (*_events.values(), *dp_dispatches.values(),
+                           *work_blocks.values()):
+                if id(source) in gone:
+                    source[:] = [x for x in source
+                                 if id(x) not in gone[id(source)]]
+    return len(mine)
 
 
 def reset_counts() -> None:
-    for name in launches:
-        launches[name] = 0
-        _events[name].clear()
-    for records in dp_dispatches.values():
-        records.clear()
+    with _count_lock:
+        for name in launches:
+            launches[name] = 0
+            _events[name].clear()
+        for records in dp_dispatches.values():
+            records.clear()
+        work_blocks.clear()
+        _unfolded.clear()
 
 
 def kernel_ms(name: str) -> float:

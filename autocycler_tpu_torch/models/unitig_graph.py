@@ -105,6 +105,9 @@ class UnitigGraph:
 
     @classmethod
     def from_gfa_file(cls, gfa_filename) -> Tuple["UnitigGraph", List[Sequence]]:
+        from ..utils.resilience import InputError, fault_fire
+        if fault_fire("gfa", str(gfa_filename)) is not None:
+            raise InputError(f"fault injection: corrupt GFA read: {gfa_filename}")
         return cls.from_gfa_lines(load_file_lines(gfa_filename))
 
     @classmethod

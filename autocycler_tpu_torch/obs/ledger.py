@@ -243,6 +243,8 @@ def write_ledger(run_dir, command: Optional[str] = None,
         with os.fdopen(fd, "w") as f:
             json.dump(payload, f, indent=2, sort_keys=True)
             f.write("\n")
+        from ..utils.resilience import crash_point
+        crash_point("pre-artifact-rename", str(path))
         os.replace(tmp, path)
         return path
     except OSError:

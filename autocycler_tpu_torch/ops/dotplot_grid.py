@@ -203,10 +203,12 @@ def match_grid(a_words: torch.Tensor, b_words: torch.Tensor,
                tile_a: int = TILE_A, tile_b: int = TILE_B) -> torch.Tensor:
     """[W, nA] x [W, nB] int32 k-mer words -> [ceil(nA/tile_a),
     ceil(nB/tile_b)] int32 match counts: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    the plain version for CPU tensors (a dispatch of the run record, not a
+    launch)."""
     if a_words.is_cuda:
         return match_grid_cuda(a_words, b_words, tile_a, tile_b)
-    return match_grid_plain(a_words, b_words, tile_a, tile_b)
+    with _device.device_work(KERNEL_WORDS, a_words.device):
+        return match_grid_plain(a_words, b_words, tile_a, tile_b)
 
 
 def _in_dtype(dtype) -> torch.dtype:
@@ -356,8 +358,12 @@ def match_grid_mxu(a_words: torch.Tensor, b_words: torch.Tensor, k: int,
     counts: the tensor-core kernel for CUDA tensors, the plain version for
     CPU tensors. ``in_dtype`` is "bfloat16" (f32 sums) or "int8" (int32
     sums); both are exact for k <= 256."""
-    fn = match_grid_mxu_cuda if a_words.is_cuda else match_grid_mxu_plain
-    return fn(a_words, b_words, k, tile, tile_a, tile_b, in_dtype)
+    if a_words.is_cuda:
+        return match_grid_mxu_cuda(a_words, b_words, k, tile, tile_a, tile_b,
+                                   in_dtype)
+    with _device.device_work(KERNEL_PM1, a_words.device):
+        return match_grid_mxu_plain(a_words, b_words, k, tile, tile_a,
+                                    tile_b, in_dtype)
 
 
 def _pad_words(words: torch.Tensor, tile: int, fill: int) -> torch.Tensor:

@@ -63,9 +63,9 @@ def sketch_params() -> Tuple[int, int, int]:
     """(k, w, s) from AUTOCYCLER_SKETCH_K, _W and _S (defaults 21, 11 and
     1024), with k clamped to [4, MAX_K] so the base-5 pack stays exact, and
     w and s to at least 1."""
-    k = min(max(env_int("AUTOCYCLER_SKETCH_K", 21), 4), MAX_K)
-    w = max(env_int("AUTOCYCLER_SKETCH_W", 11), 1)
-    s = max(env_int("AUTOCYCLER_SKETCH_S", 1024), 1)
+    k = min(max(env_int("AUTOCYCLER_SKETCH_K"), 4), MAX_K)
+    w = max(env_int("AUTOCYCLER_SKETCH_W"), 1)
+    s = max(env_int("AUTOCYCLER_SKETCH_S"), 1)
     return k, w, s
 
 

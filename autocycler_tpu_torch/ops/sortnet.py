@@ -434,10 +434,11 @@ def pack_rank(codes: torch.Tensor, starts: torch.Tensor,
               k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """(order, gid_sorted) of the length-k windows of ``codes`` at
     ``starts``: the CUDA kernels for CUDA tensors, the plain version for CPU
-    tensors."""
+    tensors (a dispatch of the run record, not a launch)."""
     if codes.is_cuda:
         return pack_rank_cuda(codes, starts, k)
-    return pack_rank_plain(codes, starts, k)
+    with _device.device_work(KERNEL, codes.device):
+        return pack_rank_plain(codes, starts, k)
 
 
 def partition_stats(codes: torch.Tensor, starts: torch.Tensor,

@@ -33,10 +33,12 @@ scope, and writes scope-filtered reports at the end. With more than one
 worker, device work serializes through the process-wide device token
 (:func:`utils.timing.enable_device_token`): one job on the card at a time,
 each block synchronised before the token passes on, while other jobs'
-host stages — load, parse, the graph work — overlap freely. After each
-job the finished launches' records fold into the registry's per-kernel
-histograms (:func:`device.fold_records`), so the daemon's per-launch state
-stays bounded.
+host stages — load, parse, the graph work — overlap freely. At the end of
+each job, before its run dir is written, that job's launches and
+dispatches fold into the registry's device seconds, dispatch counts and
+per-kernel histograms (:func:`device.fold_records`, which waits for their
+end events) and leave the per-launch lists, so the daemon's per-launch
+state stays bounded.
 
 The warm wins come from sharing the process: the CUDA context, the loaded
 kernels, the shared ``utils.pool`` executor and — because the daemon
@@ -629,6 +631,11 @@ class Scheduler:
                 failure, prefix = e, "unexpected error: "
             finally:
                 job.wall_s = time.perf_counter() - t0
+                # this job's launches and dispatches (its records only:
+                # another job's may be in flight) reach the registry
+                # before its run dir is written, and leave the daemon's
+                # per-launch lists
+                device_mod.fold_records(owner=run, drop=True)
                 if run is not None:
                     run_dir = trace.close_run(run)
                     if run_dir:
@@ -642,9 +649,6 @@ class Scheduler:
                 # stay bounded
                 obs_qc.drain_scope(job.id)
                 ledger.drain_scope(job.id)
-                # the finished launches' and dispatches' records go into
-                # the registry's histograms, so they stay bounded too
-                device_mod.fold_records()
                 # job graphs are reference-cyclic; a long-lived daemon must
                 # reclaim them eagerly or RSS grows by one graph per job
                 gc.collect()

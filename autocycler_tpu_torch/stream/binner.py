@@ -35,6 +35,7 @@ import torch
 
 from ..ops.sketch import _kmer_hashes, _window_minima
 from ..utils.pool import OrderedSubmitter
+from ..utils.resilience import crash_armed, crash_point, fault_fire
 from . import spill
 from .planner import StreamPlan
 from .spill import RECORD_BYTES, bin_filename, encode_rle, write_manifest
@@ -118,14 +119,23 @@ class StreamBinner:
 
     def _append(self, path: Path, payload: bytes) -> None:
         """The disk half of a flush, on the writer lane when the plan is
-        pipelined (lane order = submission order)."""
+        pipelined (lane order = submission order). The fault site
+        ``stream_write`` fails the append; an armed ``mid-spill-write``
+        crash point writes half the payload and kills the process, leaving
+        a torn bin in a run dir whose manifest was never sealed, which the
+        next compress's orphan sweep removes."""
+        if fault_fire("stream_write", path.name) is not None:
+            raise OSError(f"fault injection: stream bin write failed: {path}")
+        torn = crash_armed("mid-spill-write", path.name)
         with open(path, "ab") as f:
-            f.write(payload)
+            f.write(payload[: max(1, len(payload) // 2)] if torn
+                    else payload)
+        crash_point("mid-spill-write", path.name)
         self.spill_bytes += len(payload)
         self.disk_records += len(payload) // RECORD_BYTES \
             // (2 if self.plan.record_format == 2 else 1)
         spill.set_spill_gauge(self.spill_bytes)
-        spill.count("spill_bytes_total", len(payload))
+        spill.count_spill_bytes(len(payload))
 
     # ---- finalisation ----
 

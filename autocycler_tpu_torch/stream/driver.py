@@ -21,6 +21,13 @@ the whole window set at once:
 Bins are read, sorted and stitched in bin order, the writer lane keeps the
 per-bin append order, and the stitch writes each position once: the
 output is the same at every pipeline depth and worker count.
+
+The spill's posture is in the metrics registry under the JAX package's
+names: ``autocycler_stream_spill_bytes`` (a gauge, live at every append,
+0 once the run dir is removed), ``_spill_bytes_total``, ``_rle_ratio``
+(raw int64 bytes over the bytes on disk), ``_bins_total``,
+``_quarantined_bins_total`` and ``_orphans_swept_total``; ``top`` draws
+its Spill line from them.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import numpy as np
 import torch
 
 from .. import device as _device
-from ..obs import ledger
+from ..obs import ledger, metrics_registry
 from ..ops.sortnet import KERNEL
 from ..utils.pool import prefetch_iter
 from ..utils.resilience import SpillError
@@ -45,6 +52,10 @@ from .merge import merge_ranks
 from .planner import (StreamPlan, effective_workers, plan_stream,
                       resolve_threads)
 from .sorter import sort_bin
+
+BINS_TOTAL = "autocycler_stream_bins_total"
+QUARANTINED_BINS_TOTAL = "autocycler_stream_quarantined_bins_total"
+RLE_RATIO_GAUGE = "autocycler_stream_rle_ratio"
 
 
 def _launches() -> int:
@@ -92,8 +103,15 @@ def stream_group_windows_stats(codes: torch.Tensor, seq_len: np.ndarray,
                 binner.add_run(codes[fo:fo + L + k - 1], base)
                 binner.add_run(codes[ro:ro + L + k - 1], base + L)
             summary = binner.close()
+        spill.set_spill_gauge(summary["spill_bytes"])
         rle_ratio = (summary["raw_bytes"] / summary["spill_bytes"]
                      if summary["spill_bytes"] else 0.0)
+        metrics_registry.gauge_set(
+            RLE_RATIO_GAUGE, rle_ratio,
+            help="raw int64 spill bytes over on-disk (RLE) spill bytes")
+        metrics_registry.counter_inc(
+            BINS_TOTAL, summary["bins"],
+            help="stream spill bins written by pass 1")
         ledger.record_stage("stream-spill", bins=summary["bins"],
                             n_bins=summary["n_bins"],
                             records=summary["records"],
@@ -115,7 +133,9 @@ def stream_group_windows_stats(codes: torch.Tensor, seq_len: np.ndarray,
                 run_dir / spill.bin_filename(b),
                 expected=int(binner.counts[b]), fmt=fmt)
             if occ is None:
-                spill.count("quarantined_bins_total", 1)
+                metrics_registry.counter_inc(
+                    QUARANTINED_BINS_TOTAL, 1,
+                    help="stream bins quarantined as corrupt in pass 2")
                 raise SpillError(f"bin {b} quarantined: {reason}")
             return occ
 

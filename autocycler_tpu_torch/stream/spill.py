@@ -29,7 +29,12 @@ The reader never raises: torn tails, count mismatches, non-positive run
 lengths, records not ascending, unknown formats and unreadable files come
 back as ``(None, reason)`` for the caller to quarantine.
 
-The spill's bytes go to :data:`counters`, not to a metrics registry.
+The spill's posture goes to the metrics registry under the JAX package's
+names: :data:`SPILL_BYTES_GAUGE` (the bytes on disk now, 0 once the run
+dir is gone), :data:`SPILL_BYTES_TOTAL` (the bytes ever appended) and
+:data:`ORPHANS_SWEPT_TOTAL`; the driver adds the bins, the RLE ratio and
+the quarantined bins. :data:`last_run` summarises the last streamed
+grouping.
 """
 
 from __future__ import annotations
@@ -44,7 +49,9 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from ..obs import metrics_registry
 from ..utils import log
+from ..utils.resilience import fault_fire
 
 MANIFEST_NAME = "manifest.json"
 MANIFEST_VERSION = 1
@@ -53,31 +60,30 @@ RECORD_BYTES = 8
 RLE_RECORD_BYTES = 16          # format 2: (start_occ, run_len) int64 pair
 SUPPORTED_FORMATS = (1, 2)
 
-# since the last reset_counters(): the spill bytes on disk now (a gauge,
-# 0 once the run dir is gone), the bytes ever appended, the bins
-# quarantined and the orphan run dirs swept; and the summary of the last
-# streamed grouping (stream.driver)
-counters = {"spill_bytes": 0, "spill_bytes_total": 0,
-            "quarantined_bins_total": 0, "orphans_swept_total": 0}
+ORPHANS_SWEPT_TOTAL = "autocycler_stream_orphans_swept_total"
+SPILL_BYTES_GAUGE = "autocycler_stream_spill_bytes"
+SPILL_BYTES_TOTAL = "autocycler_stream_spill_bytes_total"
+
+# the summary of the last streamed grouping (stream.driver), until
+# reset_last_run()
 last_run: dict = {}
-_counter_lock = threading.Lock()
 
 
-def reset_counters() -> None:
-    with _counter_lock:
-        for name in counters:
-            counters[name] = 0
-        last_run.clear()
+def reset_last_run() -> None:
+    last_run.clear()
 
 
 def set_spill_gauge(value: int) -> None:
-    with _counter_lock:
-        counters["spill_bytes"] = int(value)
+    metrics_registry.gauge_set(
+        SPILL_BYTES_GAUGE, float(value),
+        help="bytes currently spilled to .stream k-mer bins")
 
 
-def count(name: str, n: int) -> None:
-    with _counter_lock:
-        counters[name] += int(n)
+def count_spill_bytes(n: int) -> None:
+    if n > 0:
+        metrics_registry.counter_inc(
+            SPILL_BYTES_TOTAL, int(n),
+            help="cumulative bytes appended to .stream k-mer bins")
 
 
 _root_lock = threading.Lock()
@@ -180,7 +186,13 @@ def read_bin_records(path, expected: Optional[int] = None, fmt: int = 1
     a supported format, readable, a whole number of records, the manifest's
     WINDOW count when given (format 2 checks the expanded length), and
     strictly ascending occurrence indices (pass 1 appends each occurrence
-    once, in ascending order)."""
+    once, in ascending order). The fault sites ``stream_read`` (a corrupt
+    read) and ``stream_format`` (a manifest sealed by a newer writer) are
+    keyed by the bin's file name."""
+    if fault_fire("stream_read", os.path.basename(str(path))) is not None:
+        return None, "fault injection: forced corrupt bin read"
+    if fault_fire("stream_format", os.path.basename(str(path))) is not None:
+        fmt = -1
     if int(fmt) not in SUPPORTED_FORMATS:
         return None, (f"unsupported spill record format {int(fmt)} (this "
                       f"reader supports {SUPPORTED_FORMATS})")
@@ -249,7 +261,9 @@ def sweep_orphan_spills(root) -> int:
         shutil.rmtree(run, ignore_errors=True)
         swept += 1
     if swept:
-        count("orphans_swept_total", swept)
+        metrics_registry.counter_inc(
+            ORPHANS_SWEPT_TOTAL, swept,
+            help="orphaned stream spill dirs removed at startup")
         log.message(f"Swept {swept} orphaned .stream spill "
                     f"director{'y' if swept == 1 else 'ies'} under {root}")
     return swept

@@ -116,12 +116,19 @@ def content_hash(raw: bytes) -> str:
 def _atomic_write(path: Path, payload: bytes) -> None:
     """Write to a pid-tagged tmp beside ``path``, then rename it into place:
     a reader never sees a torn entry, and a dead writer's tmp is swept by
-    the next :func:`open_cache`."""
+    the next :func:`open_cache`. An armed ``mid-cache-store`` crash point
+    writes half the payload to the tmp and kills the process there."""
+    from .resilience import crash_armed, crash_point
     fd, tmp = tempfile.mkstemp(dir=str(path.parent),
                                prefix=f"{path.name}.{os.getpid()}.",
                                suffix=".tmp")
     try:
         with os.fdopen(fd, "wb") as f:
+            if crash_armed("mid-cache-store", path.name):
+                f.write(payload[: len(payload) // 2])
+                f.flush()
+                crash_point("mid-cache-store", path.name)
+                raise OSError("crash point mid-cache-store did not exit")
             f.write(payload)
         os.replace(tmp, path)
     except OSError:

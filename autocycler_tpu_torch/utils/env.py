@@ -27,9 +27,12 @@ DEFAULTS = {
     "AUTOCYCLER_STREAM_PIPELINE": 2,
     # set: take --threads as the worker count, without the core clamp
     "AUTOCYCLER_GROUPING_EXECUTOR": "",
-    # the run record: a trace run dir, and a Prometheus dump at exit
+    # the run record: a trace run dir, and a Prometheus dump at exit;
+    # stage timings on stderr, and the log as JSON lines
     "AUTOCYCLER_TRACE_DIR": None,
     "AUTOCYCLER_METRICS": None,
+    "AUTOCYCLER_TIMINGS": False,
+    "AUTOCYCLER_LOG_JSON": False,
     # the warm-start cache: a shared dir (else <autocycler_dir>/.cache),
     # its LRU byte budget (<= 0: no eviction), and the switch
     "AUTOCYCLER_CACHE_DIR": None,
@@ -47,6 +50,9 @@ DEFAULTS = {
     "AUTOCYCLER_FLEET_PREFETCH": 2,
     "AUTOCYCLER_FLEET_DEVICES": 0,
     "AUTOCYCLER_CRASH_POINTS": "",
+    # the fault plan: 'site[:match[:mode[:times]]]' rules, comma separated
+    # (utils/resilience.py FaultPlan)
+    "AUTOCYCLER_FAULTS": None,
     # the run record's background sampler (timeseries.jsonl beside a trace
     # run and in a serve root): on/off, seconds between ticks, ticks kept
     "AUTOCYCLER_TIMESERIES": True,
@@ -62,8 +68,26 @@ DEFAULTS = {
     "AUTOCYCLER_SLO_P95_S": None,
     "AUTOCYCLER_SLO_WINDOW_S": 3600.0,
     "AUTOCYCLER_SLO_SHED_BURN": None,
-    # fleet federation: submit's router's probe timeout
+    # fleet federation: the probe and scrape timeout, how long a replica
+    # that failed a scrape keeps its last health (marked stale), and the
+    # scale-verdict engine's thresholds, flip cooldown and hysteresis
     "AUTOCYCLER_FED_TIMEOUT_S": 2.0,
+    "AUTOCYCLER_FED_STALE_S": 30.0,
+    "AUTOCYCLER_SCALE_OUT_BURN": 1.0,
+    "AUTOCYCLER_SCALE_OUT_UTIL": 0.8,
+    "AUTOCYCLER_SCALE_OUT_QUEUE": 2.0,
+    "AUTOCYCLER_SCALE_IN_UTIL": 0.0,
+    "AUTOCYCLER_SCALE_COOLDOWN_S": 60.0,
+    "AUTOCYCLER_SCALE_HYSTERESIS": 2,
+    # cluster's sketch distances: the mode, the contig count where auto
+    # turns them on, and the sketch size, window and k
+    "AUTOCYCLER_SKETCH_DISTANCE": "auto",
+    "AUTOCYCLER_SKETCH_MIN_CONTIGS": 256,
+    "AUTOCYCLER_SKETCH_S": 1024,
+    "AUTOCYCLER_SKETCH_W": 11,
+    "AUTOCYCLER_SKETCH_K": 21,
+    # dotplot's font file (unset: the bundled DejaVu Sans)
+    "AUTOCYCLER_DOTPLOT_FONT": None,
 }
 
 

@@ -88,6 +88,9 @@ def load_fasta_allow_empty(filename) -> List[Tuple[str, str, str]]:
 def load_fasta(filename) -> List[Tuple[str, str, str]]:
     """Load a FASTA file, rejecting empty files/sequences and duplicate names
     (misc.rs:145-196)."""
+    from .resilience import InputError, fault_fire
+    if fault_fire("fasta", str(filename)) is not None:
+        raise InputError(f"fault injection: corrupt FASTA read: {filename}")
     if os.path.exists(filename) and os.path.getsize(filename) == 0:
         quit_with_error(f"{filename} is an empty file")
     records = load_fasta_allow_empty(filename)

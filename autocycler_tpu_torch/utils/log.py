@@ -5,12 +5,18 @@ wrapped dim explanation text). Colour control follows the informal standard:
 suppressed when stderr is not a TTY, force-disabled by a non-empty
 ``NO_COLOR`` (https://no-color.org/), force-enabled by a non-empty
 ``FORCE_COLOR`` (NO_COLOR wins when both are set).
+
+``AUTOCYCLER_LOG_JSON=1`` writes every record (section headers,
+explanations, non-blank messages) as one JSON object a line on stderr,
+``{"ts": <iso8601>, "type": "section"|"explanation"|"message", "text":
+...}``, as the JAX package does, so log scrapers need no ANSI parsing.
 """
 
 from __future__ import annotations
 
 import contextlib
 import datetime
+import json
 import os
 import sys
 import textwrap
@@ -29,6 +35,18 @@ def _colour_enabled() -> bool:
     return sys.stderr.isatty()
 
 
+def _json_mode() -> bool:
+    from .env import env_bool
+    return env_bool("AUTOCYCLER_LOG_JSON")
+
+
+def _emit_json(record_type: str, text: str) -> None:
+    record = {"ts": datetime.datetime.now().isoformat(timespec="seconds"),
+              "type": record_type, "text": text}
+    with _spinner_guard():
+        print(json.dumps(record), file=sys.stderr)
+
+
 @contextlib.contextmanager
 def _spinner_guard():
     """Clears any active Spinner line and holds its redraw lock, so log
@@ -41,6 +59,9 @@ def _spinner_guard():
 
 
 def section_header(text: str) -> None:
+    if _json_mode():
+        _emit_json("section", text)
+        return
     timestamp = datetime.datetime.now().strftime("%Y-%m-%d %H:%M:%S")
     with _spinner_guard():
         if _colour_enabled():
@@ -51,6 +72,9 @@ def section_header(text: str) -> None:
 
 
 def explanation(text: str) -> None:
+    if _json_mode():
+        _emit_json("explanation", " ".join(text.split()))
+        return
     wrapped = textwrap.fill(" ".join(text.split()), width=80)
     with _spinner_guard():
         if _colour_enabled():
@@ -61,5 +85,9 @@ def explanation(text: str) -> None:
 
 
 def message(text: str = "") -> None:
+    if _json_mode():
+        if text:        # blank spacer lines are formatting, not records
+            _emit_json("message", text)
+        return
     with _spinner_guard():
         print(text, file=sys.stderr)

@@ -21,9 +21,16 @@ isolate: an :class:`AutocyclerError` or ``OSError`` inside it is recorded
 against the isolate, and the run goes on. Anything else, a CUDA error (a
 ``RuntimeError``) among them, propagates. :class:`RunManifest` writes
 ``batch_manifest.json`` in the JAX package's schema, so either package
-resumes the other's run. The crash points are armed only by
-``AUTOCYCLER_CRASH_POINTS``; the fault plan (``AUTOCYCLER_FAULTS``) is not
-ported.
+resumes the other's run.
+
+:class:`FaultPlan` is the deterministic fault injection of the JAX
+package, parsed from ``AUTOCYCLER_FAULTS`` (or installed with
+:func:`set_fault_plan`): rules ``site[:match[:mode[:times]]]`` that fire
+at the instrumented sites of :data:`FAULT_SITES` (a FASTA or GFA read, a
+stream bin's write, read or format, a subprocess, and the crash points),
+so that every quarantine, degrade and retry path has a way in without
+patching code. The crash points are armed by ``AUTOCYCLER_CRASH_POINTS``
+or by a plan rule at their site.
 """
 
 from __future__ import annotations
@@ -37,6 +44,7 @@ import sys
 import tempfile
 import threading
 import time
+from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -159,10 +167,12 @@ def pid_alive(pid: int) -> bool:
 
 
 # ---------------------------------------------------------------------------
-# Knob-armed crash points (the chaos harness's kill switch)
+# Fault injection: the fault plan and the crash points (the chaos
+# harness's kill switch)
 # ---------------------------------------------------------------------------
 
-# The JAX package's registered crash points, by name:
+# The registered crash points are also fault sites (their hooks call
+# :func:`crash_point`); at a crash point a rule's default mode is "crash":
 #   post-stage          a stage's artifacts are flushed but the manifest
 #                       terminal flag has NOT been flipped yet
 #   mid-spill-write     half a spill record written to a stream bin
@@ -170,18 +180,132 @@ def pid_alive(pid: int) -> bool:
 #   pre-artifact-rename manifest/ledger tmp written, os.replace pending
 #   mid-fleet-shard     a fleet shard's compress checkpoints are durable but
 #                       its cluster/finalise stages have not started
-# The port calls post-stage, pre-artifact-rename and mid-fleet-shard.
 CRASH_POINTS = ("post-stage", "mid-spill-write", "mid-cache-store",
                 "pre-artifact-rename", "mid-fleet-shard")
+# the JAX package's sites but its native library's three, which the port
+# does not have
+FAULT_SITES = ("subprocess", "fasta", "gfa", "stream_write", "stream_read",
+               "stream_format") + CRASH_POINTS
 
 # the distinctive status a crash-injected process dies with, so a harness
 # can tell an injected crash from a genuine failure
 CRASH_EXIT = 43
 
+
+@dataclass
+class FaultRule:
+    """One injection rule: fire at ``site`` when ``match`` is a substring of
+    the hook's key, in ``mode`` ("fail", "hang" or "crash"), at most
+    ``times`` times (-1 = unlimited)."""
+    site: str
+    match: str = ""
+    mode: str = "fail"
+    times: int = -1
+    fired: int = 0
+
+    def exhausted(self) -> bool:
+        return 0 <= self.times <= self.fired
+
+
+@dataclass
+class FaultPlan:
+    """An ordered set of :class:`FaultRule`, deterministic by construction:
+    rules fire on exact site and substring matches with bounded counts, so
+    an injected failure reproduces identically every run."""
+    rules: List[FaultRule] = field(default_factory=list)
+
+    @classmethod
+    def parse(cls, spec: str) -> "FaultPlan":
+        """Parse the ``AUTOCYCLER_FAULTS`` spec: comma-separated rules
+        ``site[:match[:mode[:times]]]``, for example
+        ``subprocess:flye:hang:1,fasta:iso_001,stream_read``. At a crash
+        point the default mode is ``crash``, so ``post-stage:::1`` kills
+        the process at the first post-stage boundary."""
+        rules = []
+        for part in spec.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            fields = part.split(":")
+            site = fields[0]
+            if site not in FAULT_SITES:
+                raise InputError(
+                    f"unknown fault-injection site {site!r} in "
+                    f"AUTOCYCLER_FAULTS (choose from {', '.join(FAULT_SITES)})")
+            match = fields[1] if len(fields) > 1 else ""
+            default_mode = "crash" if site in CRASH_POINTS else "fail"
+            mode = fields[2] if len(fields) > 2 and fields[2] \
+                else default_mode
+            if mode not in ("fail", "hang", "crash"):
+                raise InputError(f"unknown fault mode {mode!r} "
+                                 "(choose 'fail', 'hang' or 'crash')")
+            times = int(fields[3]) if len(fields) > 3 and fields[3] else -1
+            rules.append(FaultRule(site, match, mode, times))
+        return cls(rules)
+
+    def fire(self, site: str, key: str = "") -> Optional[FaultRule]:
+        rule = self.peek(site, key)
+        if rule is not None:
+            rule.fired += 1
+            metrics_registry.counter_inc(
+                FAULT_INJECTIONS_TOTAL, 1,
+                help="deterministic fault-injection rule firings",
+                site=site, mode=rule.mode)
+        return rule
+
+    def peek(self, site: str, key: str = "") -> Optional[FaultRule]:
+        """The rule :meth:`fire` would consume, without consuming it."""
+        for rule in self.rules:
+            if rule.site == site and not rule.exhausted() \
+                    and rule.match in str(key):
+                return rule
+        return None
+
+
+_fault_lock = threading.Lock()
+_fault_plan: Optional[FaultPlan] = None
+# (the spec it was parsed from, the plan)
+_env_plan: Optional[Tuple[str, FaultPlan]] = None
+
+
+def set_fault_plan(plan: Optional[FaultPlan]) -> None:
+    """Install (or clear, with None) an explicit fault plan; it takes
+    precedence over ``AUTOCYCLER_FAULTS``."""
+    global _fault_plan
+    with _fault_lock:
+        _fault_plan = plan
+
+
+def _active_plan_locked() -> Optional[FaultPlan]:
+    """The plan in effect (explicit, else the knob's spec), cached. Call
+    under ``_fault_lock``."""
+    global _env_plan
+    if _fault_plan is not None:
+        return _fault_plan
+    spec = env_str("AUTOCYCLER_FAULTS") or ""
+    if not spec:
+        _env_plan = None
+        return None
+    if _env_plan is None or _env_plan[0] != spec:
+        _env_plan = (spec, FaultPlan.parse(spec))
+    return _env_plan[1]
+
+
+def fault_fire(site: str, key: str = "") -> Optional[FaultRule]:
+    """The hook the instrumented sites call: the matching rule (one firing
+    consumed) or None; cheap when no plan is active. A matched ``crash``
+    rule never returns: the process dies with :data:`CRASH_EXIT` here."""
+    with _fault_lock:
+        plan = _active_plan_locked()
+        rule = plan.fire(site, key) if plan is not None else None
+    if rule is not None and rule.mode == "crash":
+        _crash_exit(site, key)
+    return rule
+
+
 # Patchable seam so tests can observe a would-be crash instead of dying.
 _exit = os._exit
 
-_crash_lock = threading.Lock()
 # Per-point hit counters for AUTOCYCLER_CRASH_POINTS "point@n" arming;
 # process-wide because a crash point is a process-lifetime event.
 _crash_hits: Dict[str, int] = {}
@@ -221,7 +345,7 @@ def _parse_crash_points(spec: str) -> Dict[str, int]:
 
 def _crash_due_locked(point: str, advance: bool) -> bool:
     """Whether the next hit of ``point`` is armed via AUTOCYCLER_CRASH_POINTS.
-    Call under ``_crash_lock``; ``advance`` consumes one hit."""
+    Call under ``_fault_lock``; ``advance`` consumes one hit."""
     global _crash_spec_cache
     spec = env_str("AUTOCYCLER_CRASH_POINTS")
     targets: Dict[str, int] = {}
@@ -237,17 +361,23 @@ def _crash_due_locked(point: str, advance: bool) -> bool:
 
 def crash_armed(point: str, key: str = "") -> bool:
     """True when :func:`crash_point` called now would kill the process,
-    WITHOUT consuming the hit."""
-    with _crash_lock:
-        return _crash_due_locked(point, advance=False)
+    WITHOUT consuming the hit. A site that simulates a torn write uses it
+    to write a partial payload before the crash point fires."""
+    with _fault_lock:
+        if _crash_due_locked(point, advance=False):
+            return True
+        plan = _active_plan_locked()
+        rule = plan.peek(point, key) if plan is not None else None
+    return rule is not None and rule.mode == "crash"
 
 
 def crash_point(point: str, key: str = "") -> None:
     """A registered crash point: deterministically ``_exit(CRASH_EXIT)``
-    here when ``AUTOCYCLER_CRASH_POINTS`` (comma list of ``point[@n]``)
-    arms the n-th hit of ``point`` (default the first), else a no-op.
-    Every call counts one hit for the ``@n`` bookkeeping."""
-    with _crash_lock:
+    here when armed, else a no-op. Armed by ``AUTOCYCLER_CRASH_POINTS``
+    (comma list of ``point[@n]``: the n-th hit of the point, default the
+    first) or by a fault-plan rule at this site. Every call counts one
+    hit for the ``@n`` bookkeeping."""
+    with _fault_lock:
         due = _crash_due_locked(point, advance=True)
     if due:
         metrics_registry.counter_inc(
@@ -255,11 +385,12 @@ def crash_point(point: str, key: str = "") -> None:
             help="deterministic fault-injection rule firings",
             site=point, mode="crash")
         _crash_exit(point, key)
+    fault_fire(point, key)
 
 
 def _reset_crash_hits_for_tests() -> None:
     global _crash_spec_cache
-    with _crash_lock:
+    with _fault_lock:
         _crash_hits.clear()
         _crash_spec_cache = None
 
@@ -269,6 +400,17 @@ def _reset_crash_hits_for_tests() -> None:
 # ---------------------------------------------------------------------------
 
 _STDERR_TAIL_BYTES = 2000
+
+# the commands a "subprocess" fault rule runs in place of the real one, so
+# that an injected failure or hang goes through the real launch, wait and
+# kill-on-timeout
+_FAIL_CMD = [sys.executable, "-c",
+             "import sys; sys.stderr.write('autocycler fault injection: "
+             "forced subprocess failure\\n'); sys.exit(3)"]
+_HANG_CMD = [sys.executable, "-c",
+             "import sys, time; sys.stderr.write('autocycler fault "
+             "injection: forced hang\\n'); sys.stderr.flush(); "
+             "time.sleep(600)"]
 
 
 class SubprocessError(AutocyclerError):
@@ -332,6 +474,8 @@ def run_command(cmd: List[str], stdout_file=None, cwd=None,
       attempt; retries wait ``backoff_delay`` between attempts.
     - a partial ``stdout_file`` is deleted on every failed attempt, so the
       caller never mistakes it for real output.
+    - a fault rule at site ``subprocess`` (keyed by argv[0]) runs a forced
+      failure or hang in place of the command.
 
     Returns 0 on success; raises :class:`SubprocessError` after the final
     failed attempt. FileNotFoundError (unlaunchable command) propagates —
@@ -350,7 +494,11 @@ def run_command(cmd: List[str], stdout_file=None, cwd=None,
     last_error: Optional[SubprocessError] = None
     with trace.span(f"subprocess {name}", cat="subprocess", command=cmd[0]):
         for attempt in range(1, attempts + 1):
-            returncode, reason, tail = _attempt(cmd, stdout_file, cwd,
+            run_cmd = cmd
+            rule = fault_fire("subprocess", cmd[0])
+            if rule is not None:
+                run_cmd = _HANG_CMD if rule.mode == "hang" else _FAIL_CMD
+            returncode, reason, tail = _attempt(run_cmd, stdout_file, cwd,
                                                 timeout)
             if returncode == 0:
                 return 0

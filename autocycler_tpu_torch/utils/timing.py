@@ -12,6 +12,11 @@ substages that ran inside it to stderr. Each stage or substage that ends
 with a device result copied to the host has waited for its device work, so
 its wall time includes that work.
 
+It names the device families, the JAX package's, that
+``device.fold_records`` writes (seconds, dispatches, the per-dispatch and
+per-kernel histograms), and counts device-path failures
+(:func:`record_device_failure`).
+
 The device token (:func:`enable_device_token`, which the multi-worker
 serve scheduler turns on) serializes device work through one process-wide
 lock: ``device.py`` holds it across every kernel launch and torch-op
@@ -34,6 +39,12 @@ from .env import env_bool
 from .misc import format_duration
 
 # metric names, the JAX package's
+DEVICE_SECONDS = "autocycler_device_seconds_total"
+DEVICE_DISPATCHES = "autocycler_device_dispatches_total"
+DEVICE_FAILURES = "autocycler_device_failures_total"
+DEVICE_FAILURE_LAST = "autocycler_device_failure_last"
+DEVICE_DISPATCH_HIST = "autocycler_device_dispatch_seconds"
+DEVICE_KERNEL_HIST = "autocycler_device_kernel_seconds"
 STAGE_SECONDS = "autocycler_stage_seconds_total"
 STAGE_LATENCY_HIST = "autocycler_stage_latency_seconds"
 SUBSTAGE_SECONDS = "autocycler_substage_seconds_total"
@@ -76,6 +87,29 @@ def device_token(kernel: str, sync: Optional[Callable[[], None]] = None):
             sync()
     finally:
         _token_lock.release()
+
+
+# an exception that already went through record_device_failure carries
+# this attribute, so that an enclosing device block does not count it again
+_RECORDED_ATTR = "_autocycler_device_failure_recorded"
+
+
+def record_device_failure(what: str, exc: BaseException = None) -> None:
+    """Counts one device-path failure into :data:`DEVICE_FAILURES` and
+    describes it in :data:`DEVICE_FAILURE_LAST`. When ``exc`` already went
+    through here (a block inside another), only the description changes."""
+    already = exc is not None and getattr(exc, _RECORDED_ATTR, False)
+    if exc is not None:
+        try:
+            setattr(exc, _RECORDED_ATTR, True)
+        except AttributeError:
+            pass
+    reg = metrics_registry.registry()
+    if not already:
+        reg.counter_inc(DEVICE_FAILURES, 1,
+                        help="device-path failures")
+    reg.info_set(DEVICE_FAILURE_LAST, what,
+                 help="description of the most recent device-path failure")
 
 
 def token_wait_seconds() -> float:
@@ -139,7 +173,7 @@ def stage_timer(name: str):
         reg.observe(STAGE_LATENCY_HIST, elapsed,
                     help="per-stage wall latency distribution",
                     buckets=metrics_registry.SECONDS_BUCKETS, stage=name)
-        if env_bool("AUTOCYCLER_TIMINGS", False):
+        if env_bool("AUTOCYCLER_TIMINGS"):
             log.message(f"[timing] {name}: {format_duration(elapsed)}")
             for sub, secs in substage_deltas(before).items():
                 log.message(f"[timing] {name} · {sub}: "

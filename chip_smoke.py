@@ -43,8 +43,11 @@ Phases (any failure exits non-zero, and the result lines are not printed):
              through compress, cluster, dotplot, trim, resolve and combine
              on the card and on the CPU (the kernels' plain versions),
              which must write the same bytes. The headline compress is
-             cold and writes the JAX package's tree, its .cache holding 24
-             parse entries and the repair entry.
+             cold and traced, and writes the JAX package's tree, its .cache
+             holding 24 parse entries and the repair entry; its report's
+             "Device vs host" line must read the run's dispatches, and its
+             metrics dump's device seconds the summed CUDA-event ms of its
+             launches, DP dispatches and device_work blocks (within 1 %).
    batch   — `batch` through the CLI on [main]'s headline isolate (its
              assemblies symlinked), 7 of bench.py bench_batch's isolates
              (12 assemblies of a 50 kb chromosome + 5 kb plasmid, seeds
@@ -64,6 +67,12 @@ Phases (any failure exits non-zero, and the result lines are not printed):
              int64 product, and the sketch step at 96 x 12 x 1024 (k=21,
              4096 buckets) against the single-device step on the card and
              on CPU tensors, exact.
+   chaos   — one crash and resume at full size: `batch` of [batch]'s
+             headline isolate alone in a child process with mid-spill-write
+             armed (it dies with exit 43 and the marker inside the stream's
+             pass 1), then --resume in a second child (exit 0, the dead
+             spill dir swept, no tmp file or .stream/run-* left, the three
+             final files equal to [batch]'s serial run's).
    serve   — the daemon on the card in this process, over loopback HTTP:
              ServeHandle(root, workers=2) with its process warmed as
              `serve` warms it (a shared .cache under its root, both kernel
@@ -86,7 +95,11 @@ Phases (any failure exits non-zero, and the result lines are not printed):
              in the header), QC and ledger; timeseries.jsonl ticks carry
              device_bytes_in_use; /metrics shows done and failed jobs and
              the token's wait; the grouping launches add up job by job;
-             POST /shutdown gives 200. Per job: queue wait, wall, stage and
+             `top --fleet` over a fleet dir holding the live daemon's root
+             finds 1 healthy replica, writes fleet_status.json and gives a
+             verdict; POST /shutdown gives 200; `top` on the root shows
+             device seconds in view and a Spill line with at least the
+             headline's bins. Per job: queue wait, wall, stage and
              substage seconds, grouping launches; then the token's wait,
              the device peaks, memory_reserved, and the walls beside
              [main]'s CLI walls. (`--serve-costs` runs only the daemon's
@@ -115,14 +128,14 @@ Phases (any failure exits non-zero, and the result lines are not printed):
    stream  — the headline compress once more through the CLI with
              AUTOCYCLER_STREAM_KMERS=off (the in-memory grouping): its GFA
              and YAML must equal [main]'s; both runs' walls,
-             compress/build_graph and peak device memory. Then each
-             compress (streamed, in memory) once more in a fresh process,
-             the same GFA and YAML, for its wall, peak host RSS
-             (VmRSS sampled every 10 ms) and peak device memory.
+             compress/build_graph and peak device memory. (Each compress
+             once more in a fresh process, for its peak host RSS, was cut
+             in depth to pay for [chaos].)
    sketch  — the plasmid-rich configuration (24 assemblies of a 5.3 Mbp
              chromosome and ten plasmids of 2.5-250 kb, 264 contigs, seed
-             13): compress (streamed, and once more in memory: the same
-             files), then cluster with the default knob (sketch
+             13): compress (streamed; the in-memory compress was cut in
+             depth to pay for [chaos]), then cluster with the default knob
+             (sketch
              distances, hashed on the card), with verify and with exact
              distances (verify with the cache off, so that it sketches
              cold), 11 QC-pass clusters and one partition in all three;
@@ -354,7 +367,7 @@ def check_stream() -> None:
         os.environ.update(knobs)
         for rle in ("1", "0"):
             os.environ["AUTOCYCLER_STREAM_RLE"] = rle
-            spill.reset_counters()
+            spill.reset_last_run()
             device.reset_counts()
             got = stream_group_windows_stats(
                 torch.from_numpy(codes).cuda(), seq_len, fwd_off, rev_off,
@@ -799,21 +812,31 @@ def phase_main(work: Path):
 
 
 def compress_cold(asm: Path, out: Path) -> dict:
-    """The headline compress through the CLI into a fresh directory, cold:
-    it must stream, and leave the JAX package's tree, its .cache holding
-    the 24 parse entries and the repair entry. Also records what it pays to
-    key and fill the cache: seconds summed over the loader threads that
-    hash and store at once."""
+    """The headline compress through the CLI into a fresh directory, cold
+    and traced (its run dir beside ``out``): it must stream, and leave the
+    JAX package's tree, its .cache holding the 24 parse entries and the
+    repair entry; its report's device line must read the run's CUDA-event
+    seconds (check_device_record). Also records what it pays to key and
+    fill the cache: seconds summed over the loader threads that hash and
+    store at once."""
     from autocycler_tpu_torch.commands import compress as compress_mod
     from autocycler_tpu_torch.utils import cache
 
-    with _recorded(compress_mod, "content_hash", lambda a, r: None) as hashes, \
-            _recorded(cache.EncodeCache, "store_parsed",
-                      lambda a, r: None) as parse_stores, \
-            _recorded(cache.EncodeCache, "store_repair_ends",
-                      lambda a, r: None) as repair_stores:
-        compressed = run_cli("compress", ["compress", "-i", asm, "-a", out,
-                                          "--kmer", "51"])
+    run_dir = out.parent / "tel_compress"
+    os.environ["AUTOCYCLER_TRACE_DIR"] = str(run_dir)
+    try:
+        with _recorded(compress_mod, "content_hash",
+                       lambda a, r: None) as hashes, \
+                _recorded(cache.EncodeCache, "store_parsed",
+                          lambda a, r: None) as parse_stores, \
+                _recorded(cache.EncodeCache, "store_repair_ends",
+                          lambda a, r: None) as repair_stores:
+            compressed = run_cli("compress", ["compress", "-i", asm, "-a",
+                                              out, "--kmer", "51"])
+    finally:
+        os.environ.pop("AUTOCYCLER_TRACE_DIR")
+    compressed["device_record"] = check_device_record(
+        "main", "compress", compressed, run_dir)
     compressed["cache_store_s"] = {
         name: sum(secs for _, secs in calls) for name, calls in (
             ("content_hash", hashes), ("store_parsed", parse_stores),
@@ -833,6 +856,50 @@ def compress_cold(asm: Path, out: Path) -> dict:
         "seconds to hash and store them, summed over the loader threads: "
         f"{json.dumps(compressed['cache_store_s'])}")
     return compressed
+
+
+def check_device_record(phase: str, label: str, run: dict,
+                        run_dir: Path) -> dict:
+    """The traced CLI call ``run``'s device record: its report prints a
+    "Device vs host" line with a non-zero count, its metrics dump holds
+    device seconds equal to the call's launches', DP dispatches' and
+    device_work blocks' CUDA-event ms (within 1 %), and its dispatch count
+    equals their number."""
+    from autocycler_tpu_torch.obs import report
+
+    text = report.render_report(report.build_report(run_dir))
+    line = next((x for x in text.splitlines()
+                 if x.startswith("Device vs host:")), "")
+    snap = json.loads((run_dir / "metrics.json").read_text())
+
+    def total(name):
+        return sum(v["value"] for v in (snap.get(name) or {}).get("values",
+                                                                  []))
+
+    seconds = total("autocycler_device_seconds_total")
+    dispatches = total("autocycler_device_dispatches_total")
+    kernel_ms = sum(run["kernel_ms"].values())
+    dp_ms = sum(d.get("ms", 0.0) for d in run["dp"].values())
+    work_ms = sum(w["ms"] for w in run["work"].values())
+    count = {"launches": sum(run["launches"].values()),
+             "dp_dispatches": sum(d["dispatches"] for d in run["dp"].values()),
+             "work_blocks": sum(w["blocks"] for w in run["work"].values())}
+    want_ms = kernel_ms + dp_ms + work_ms
+    shown = int(line.split(" across ")[1].split()[0]) if " across " in line \
+        else 0
+    record = {"report_line": line, "device_seconds": seconds,
+              "dispatches": dispatches, "kernel_ms": kernel_ms,
+              "dp_ms": dp_ms, "work_ms": work_ms, **count,
+              "work": run["work"]}
+    if not line or shown == 0 or seconds <= 0 \
+            or abs(seconds * 1e3 - want_ms) > 0.01 * want_ms \
+            or dispatches != sum(count.values()) or shown != dispatches:
+        raise AssertionError(f"[{phase}] {label}: the device record does "
+                             f"not add up: {json.dumps(record)}")
+    log(f"[{phase}] {label}: report {line!r}; device seconds equal the "
+        "launches' + DP dispatches' + device_work blocks' CUDA-event ms "
+        f"within 1 %: {json.dumps(record)}")
+    return record
 
 
 def headline_replicons():
@@ -950,8 +1017,9 @@ def run_cli(label: str, argv, phase: str = "main", expect_rc: int = 0) -> dict:
     """One CLI call with every launch count, DP record, spill counter,
     degrade record and timer set to 0 just before it and read just after.
     An exit code other than ``expect_rc``, or a degrade recorded in the
-    call, fails it. Returns its launches, DP
-    dispatches, stage and substage seconds, wall seconds, the streamed
+    call, fails it. Returns its launches and their CUDA-event ms, DP
+    dispatches, device_work blocks, stage and substage seconds, wall
+    seconds, the streamed
     grouping's record (empty when it grouped in memory), and its peak
     device memory above what was held before it; for a compress, also
     compress/build_graph's own peak device memory."""
@@ -961,7 +1029,7 @@ def run_cli(label: str, argv, phase: str = "main", expect_rc: int = 0) -> dict:
     from autocycler_tpu_torch.utils import resilience, timing
 
     device.reset_counts()
-    spill.reset_counters()
+    spill.reset_last_run()
     resilience.reset_degrades()
     timing.reset()
     stderr = io.StringIO()
@@ -999,6 +1067,7 @@ def run_cli(label: str, argv, phase: str = "main", expect_rc: int = 0) -> dict:
     launches = dict(device.launches)
     kernel_ms = {n: device.kernel_ms(n) for n, c in launches.items() if c}
     dps = {n: device.dp_summary(n) for n in device.dp_dispatches}
+    work_blocks = device.work_summary()
     if rc != expect_rc:
         raise RuntimeError(f"[{phase}] {label} exited {rc}:\n"
                            f"{stderr.getvalue()[-3000:]}")
@@ -1015,9 +1084,9 @@ def run_cli(label: str, argv, phase: str = "main", expect_rc: int = 0) -> dict:
         f"(ms, CUDA events) {json.dumps(kernel_ms)}, stages (s) "
         f"{json.dumps(stages)}, substages (s) "
         f"{json.dumps(substages)}{dp_text}, memory {json.dumps(peaks)}")
-    return {"launches": launches, "dp": dps, "stages": stages,
-            "substages": substages, "wall_s": wall, "stream": dict(spill.last_run),
-            **peaks}
+    return {"launches": launches, "kernel_ms": kernel_ms, "dp": dps,
+            "work": work_blocks, "stages": stages, "substages": substages,
+            "wall_s": wall, "stream": dict(spill.last_run), **peaks}
 
 
 STREAM_SUBSTAGES = ("stream-kmers", "stream-bin", "stream-sort",
@@ -1231,7 +1300,7 @@ def _in_process(label: str, flow) -> dict:
 
     steps = {}
     device.reset_counts()
-    spill.reset_counters()
+    spill.reset_last_run()
     resilience.reset_degrades()
     timing.reset()
     gc.disable()
@@ -1550,6 +1619,50 @@ def phase_batch(work: Path) -> None:
     return {name: run["summary"] for name, run in runs.items()}
 
 
+# [chaos]: the crash point it arms, and each child's time limit (s)
+CHAOS_POINT = "mid-spill-write"
+CHAOS_TIMEOUT_S = 600.0
+
+
+def phase_chaos(work: Path) -> dict:
+    """One chaos cycle at full size on the card: `batch` of [batch]'s
+    headline isolate alone (24 assemblies, 146,880,000 bp, -k 51 -t 8) in
+    a child process with mid-spill-write armed, which must die at that
+    point (exit 43, the marker on stderr) inside the stream's pass 1; then
+    --resume in a second child, which must exit 0, sweep the dead run's
+    spill dir, leave no tmp file or .stream/run-* dir, and write the three
+    final files of [batch]'s serial run, byte for byte (its files are the
+    oracle: a batch of one isolate writes that isolate's files as the full
+    batch does, tests/test_torch_chaos.py)."""
+    from autocycler_tpu_torch.utils import chaos
+
+    parent = work / "chaos_isolates"
+    parent.mkdir()
+    (parent / "iso_headline").symlink_to(
+        (work / "batch_isolates" / "iso_headline").resolve())
+    oracle = {rel: sha for rel, sha in
+              chaos.artifact_digests(work / "batch_serial").items()
+              if rel.startswith("iso_headline/")}
+    if len(oracle) != len(chaos.FINAL_ARTIFACTS) or None in oracle.values():
+        raise AssertionError(f"[chaos] [batch]'s oracle files: {oracle}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()        # the children need the card's memory
+    verdict = chaos.chaos_cycle(parent, work / "chaos", CHAOS_POINT,
+                                kmer=51, oracle=oracle,
+                                timeout=CHAOS_TIMEOUT_S, device="cuda:0",
+                                threads=8)
+    line = verdict.get("crash_line") or ""
+    if not verdict["passed"] or verdict["crash_rc"] != chaos.CRASH_EXIT \
+            or ".u64" not in line or verdict["orphans_swept"] < 1:
+        raise AssertionError(f"[chaos] {json.dumps(verdict)}")
+    log(f"[chaos] {CHAOS_POINT} at the headline: the child died with exit "
+        f"{verdict['crash_rc']} ({line!r}) after {verdict['crash_s']} s, "
+        f"--resume exited 0 after {verdict['resume_s']} s and swept "
+        f"{verdict['orphans_swept']} dead spill dir; the 3 final files equal "
+        f"[batch]'s serial run's; no orphan: {json.dumps(verdict)}")
+    return verdict
+
+
 # [serve]: the daemon's workers, the sampler's tick (s) and each wait's cap
 SERVE_WORKERS = 2
 SERVE_TICK_S = "0.5"
@@ -1695,8 +1808,63 @@ def _serve_jobs(handle, headline: Path, second: Path, parent: Path, small,
     run["fleet_stats"] = events_since(before)
     _, run["metrics"] = request_json(handle.endpoint, "GET", "/metrics")
     _, run["health_end"] = request_json(handle.endpoint, "GET", "/healthz")
+    run["fleet_top"] = serve_fleet_top(handle.root,
+                                       handle.root.parent / "serve_fleet")
     run["shutdown"], _ = request_json(handle.endpoint, "POST", "/shutdown")
     return run
+
+
+def _top(argv) -> str:
+    """The port's `top` through the CLI; its frame (stdout)."""
+    from autocycler_tpu_torch import cli
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"[serve] {' '.join(argv)} exited {rc}")
+    return out.getvalue()
+
+
+def serve_fleet_top(root: Path, fleet_dir: Path) -> dict:
+    """`top --fleet --once` over a fleet dir whose only replica is the live
+    daemon's root: the scraper finds one healthy replica, writes
+    fleet_status.json and gives a verdict."""
+    from autocycler_tpu_torch.obs import federate
+    fleet_dir.mkdir()
+    (fleet_dir / root.name).symlink_to(root.resolve())
+    t0 = time.perf_counter()
+    frame = _top(["top", "--fleet", str(fleet_dir), "--once"])
+    seconds = time.perf_counter() - t0
+    status = federate.read_fleet_status(fleet_dir / federate.FLEET_STATUS_JSON)
+    summary, verdict = status.get("summary") or {}, status.get("verdict") or {}
+    if summary.get("replicas") != 1 or summary.get("healthy") != 1 \
+            or verdict.get("verdict") not in federate.VERDICTS \
+            or "1 healthy" not in frame or "Verdict" not in frame:
+        raise AssertionError(f"[serve] top --fleet: {frame!r}, summary "
+                             f"{summary}, verdict {verdict}")
+    log(f"[serve] top --fleet over one replica ({seconds:.3f} s):\n{frame}")
+    return {"summary": summary, "verdict": verdict["verdict"],
+            "seconds": seconds}
+
+
+def serve_top(root: Path, cold_bins: int) -> dict:
+    """`top --once` on the stopped daemon's root: a Device/host line with
+    device seconds in view, and a Spill line with at least ``cold_bins``
+    more bins (the cold headline-size jobs streamed)."""
+    frame = _top(["top", str(root), "--once"])
+    lines = {line.split()[0]: line for line in frame.splitlines() if line}
+    device_s = bins = 0
+    if "Device/host" in lines and " in view" in lines["Device/host"]:
+        device_s = float(lines["Device/host"].split("s in view")[0]
+                         .split()[-1])
+    if "Spill" in lines and "bins +" in lines["Spill"]:
+        bins = int(lines["Spill"].split("bins +")[1].split()[0])
+    if device_s <= 0 or bins < cold_bins:
+        raise AssertionError(f"[serve] top: device {device_s} s, bins "
+                             f"{bins} (want > 0 and >= {cold_bins}):\n"
+                             f"{frame}")
+    log(f"[serve] top --once on the daemon's root:\n{frame}")
+    return {"device_s_in_view": device_s, "spill_bins_in_view": bins}
 
 
 def phase_serve(work: Path, cold: dict) -> dict:
@@ -1742,6 +1910,9 @@ def phase_serve(work: Path, cold: dict) -> dict:
         f"loaded); probe {json.dumps(device.probe_report())}")
     os.environ["AUTOCYCLER_TIMESERIES_INTERVAL_S"] = SERVE_TICK_S
     device.reset_counts()
+    # a daemon's registry starts empty: its time series (and top) then
+    # holds only its own jobs' counts
+    timing.reset()
     token_before = timing.token_wait_seconds()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1766,6 +1937,7 @@ def phase_serve(work: Path, cold: dict) -> dict:
         timing.enable_device_token(False)
     token_wait = timing.token_wait_seconds() - token_before
     launches = device.launches["sortnet_pack_rank"]
+    top_view = serve_top(root, cold["stream"]["bins"])
     head, head2, children, bad, warm, fleet = (run[k] for k in (
         "head", "head2", "children", "bad", "warm", "fleet"))
     health_end, warm_stats, fleet_stats = (run[k] for k in (
@@ -1893,7 +2065,8 @@ def phase_serve(work: Path, cold: dict) -> dict:
                     "headline compress job, warm": warm["wall_s"],
                     "main CLI": main_walls,
                     "main CLI sum": sum(main_walls.values())},
-        "sampler": health_end["sampler"], "probe": health_end["probe"]}
+        "sampler": health_end["sampler"], "probe": health_end["probe"],
+        "top": top_view, "fleet_top": run["fleet_top"]}
     log("[serve] the headline job wrote [main]'s files, the second "
         "headline-size job a GFA that decompresses to its inputs, both cold "
         "at once "
@@ -1911,90 +2084,13 @@ def spill_bins() -> int:
     return int(spill.last_run["bins"])
 
 
-# One CLI call in a fresh process: the resident set after torch's import
-# and the CUDA context, then the call's wall, the process's peak resident
-# set (VmRSS sampled every 10 ms: a peak shorter than that can be missed)
-# and its peak device memory, as JSON into argv[1]. Neither VmHWM nor
-# getrusage's ru_maxrss serves everywhere: some kernels give no VmHWM, and
-# an ru_maxrss that is not the process's own.
-_PEAK_CHILD = r"""
-import json, sys, threading, time
-import torch
-from autocycler_tpu_torch import cli
-
-def rss():
-    with open("/proc/self/status") as f:
-        for line in f:
-            if line.startswith("VmRSS:"):
-                return int(line.split()[1]) * 1024
-
-torch.zeros(1, device="cuda")
-torch.cuda.synchronize()
-before = sampled = rss()
-stop = threading.Event()
-
-def sample():
-    global sampled
-    while not stop.wait(0.01):
-        sampled = max(sampled, rss())
-
-sampler = threading.Thread(target=sample, daemon=True)
-sampler.start()
-t0 = time.perf_counter()
-rc = cli.main(sys.argv[2:])
-torch.cuda.synchronize()
-wall = time.perf_counter() - t0
-stop.set()
-sampler.join()
-with open(sys.argv[1], "w") as f:
-    json.dump({"rc": rc, "wall_s": wall, "host_rss_bytes_before": before,
-               "peak_host_rss_bytes": max(sampled, rss()),
-               "peak_device_bytes": torch.cuda.max_memory_allocated()}, f)
-"""
-
-
-def compress_fresh_process(label: str, asm: Path, out: Path, mode: str,
-                        expected: Path) -> dict:
-    """The headline compress with AUTOCYCLER_STREAM_KMERS=``mode`` in a
-    fresh process, so that its host peak is its own: the process's peak
-    resident set against its resident set once torch and the CUDA context
-    are up. Its
-    GFA and YAML must equal those in ``expected``."""
-    result = out.parent / f"{out.name}.json"
-    env = {**os.environ, "AUTOCYCLER_STREAM_KMERS": mode,
-           "PYTHONPATH": os.pathsep.join(
-               [str(REPO), os.environ.get("PYTHONPATH", "")])}
-    torch.cuda.empty_cache()
-    proc = subprocess.run(
-        [sys.executable, "-c", _PEAK_CHILD, str(result), "compress", "-i",
-         str(asm), "-a", str(out), "--kmer", "51"], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"[stream] {label} exited {proc.returncode}:\n"
-                           f"{proc.stderr[-3000:]}")
-    run = json.loads(result.read_text())
-    if run["rc"] != 0:
-        raise RuntimeError(f"[stream] {label}: compress returned {run['rc']}"
-                           f":\n{proc.stderr[-3000:]}")
-    if (out / ".stream").exists() != (mode == "auto"):
-        raise AssertionError(f"[stream] {label}: the grouping path is not "
-                             f"AUTOCYCLER_STREAM_KMERS={mode}'s")
-    for name in ("input_assemblies.gfa", "input_assemblies.yaml"):
-        if (out / name).read_bytes() != (expected / name).read_bytes():
-            raise AssertionError(f"[stream] {label}: {name} differs from "
-                                 "[main]'s")
-    run["peak_host_rss_above_start_bytes"] = \
-        run["peak_host_rss_bytes"] - run["host_rss_bytes_before"]
-    return run
-
-
 def phase_stream(work: Path, streamed: dict):
     """The headline compress once more through the CLI, grouping in memory
     (AUTOCYCLER_STREAM_KMERS=off): its GFA and YAML must equal [main]'s
     streamed run's. Logs both runs' walls, compress/build_graph and peak
-    device memory; then each compress once more in a fresh process
-    (streamed, in memory), for its peak host RSS. Returns the in-memory
-    k=51 grouping's inputs, for [timing]."""
+    device memory. Returns the in-memory k=51 grouping's inputs, for
+    [timing]. (The fresh-process pair that measured each compress's peak
+    host RSS was cut in depth to pay for [chaos].)"""
     asm, out = work / "headline" / "assemblies", work / "in_memory"
     os.environ["AUTOCYCLER_STREAM_KMERS"] = "off"
     try:
@@ -2022,13 +2118,6 @@ def phase_stream(work: Path, streamed: dict):
                                          ("in_memory", in_memory))}))
     log("[stream] the in-memory compress writes [main]'s GFA and YAML, byte "
         "for byte")
-    fresh = {label: compress_fresh_process(f"headline compress, {label}, fresh "
-                                        "process", asm,
-                                        work / f"fresh_{label}", mode,
-                                        work / "out")
-             for label, mode in (("streamed", "auto"), ("in_memory", "off"))}
-    log("[stream] headline compress in a fresh process each, the same GFA "
-        "and YAML: " + json.dumps(fresh))
     return k51[0]
 
 
@@ -2425,8 +2514,8 @@ def _recorded(module, name: str, keep):
 
 def phase_sketch(work: Path) -> None:
     """The plasmid-rich configuration (264 contigs): compress (287 M
-    windows, so streamed; once more in memory, which must write the same
-    files), then cluster through the CLI with the default knob (auto, so
+    windows, so streamed), then cluster through the CLI with the default
+    knob (auto, so
     sketch distances, hashed on the card), with verify, and with exact
     distances: 11 QC-pass clusters each time and the same partition. The
     sketch runs' sketching seconds, their grid's CUDA-event ms and verify's
@@ -2447,19 +2536,6 @@ def phase_sketch(work: Path) -> None:
                          ["compress", "-i", asm, "-a", out, "--kmer", "51"],
                          "sketch")
     check_streamed("sketch", "plasmid-rich compress", compressed)
-    in_memory = work / "plasmid_rich_in_memory"
-    os.environ["AUTOCYCLER_STREAM_KMERS"] = "off"
-    try:
-        run_cli("plasmid-rich compress, in memory",
-                ["compress", "-i", asm, "-a", in_memory, "--kmer", "51"],
-                "sketch")
-    finally:
-        os.environ.pop("AUTOCYCLER_STREAM_KMERS")
-    if not _same_files(out, in_memory):
-        raise AssertionError("[sketch] the streamed plasmid-rich compress "
-                             "differs from the in-memory one")
-    log("[sketch] streamed and in-memory plasmid-rich compress: the same "
-        "files, byte for byte")
     partitions, runs = {}, {}
     saved = os.environ.pop("AUTOCYCLER_SKETCH_DISTANCE", None)
     try:
@@ -3124,6 +3200,8 @@ def main() -> int:
                 Path(td))
         with _phase("batch"):
             batch_runs = phase_batch(Path(td))
+        with _phase("chaos"):
+            phase_chaos(Path(td))
         with _phase("serve"):
             phase_serve(Path(td), compressed)
         with _phase("warm"):

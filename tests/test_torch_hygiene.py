@@ -145,10 +145,68 @@ def test_no_port_file_imports_jax_or_the_jax_package():
                                       "scheduler", "server", "client",
                                       "router")} <= names
     assert {f"obs/{m}.py" for m in ("timeseries", "report", "watch",
-                                    "federate")} <= names
+                                    "federate", "top")} <= names
+    assert "utils/chaos.py" in names
     offenders = [str(f.relative_to(REPO)) for f in files
                  if FORBIDDEN_IMPORT.search(f.read_text())]
     assert offenders == []
+
+
+KNOB_READ = re.compile(r"""(?:env_(?:str|int|bool|float)|environ\.get|"""
+                       r"""getenv|setdefault)\(\s*["'](AUTOCYCLER_\w+)["']""")
+
+
+def test_every_knob_the_port_reads_has_the_jax_default():
+    """Each AUTOCYCLER_* knob the port reads is in utils/env.py's DEFAULTS,
+    with the default of the JAX package's knob registry, and every reader
+    of the port takes it from there."""
+    from autocycler_tpu.utils.knobs import KNOBS
+    from autocycler_tpu_torch.utils.env import DEFAULTS
+    read = set()
+    for f in PORT.rglob("*.py"):
+        read |= set(KNOB_READ.findall(f.read_text()))
+    assert {"AUTOCYCLER_LOG_JSON", "AUTOCYCLER_FAULTS",
+            "AUTOCYCLER_FED_STALE_S", "AUTOCYCLER_SCALE_OUT_BURN",
+            "AUTOCYCLER_SCALE_OUT_UTIL", "AUTOCYCLER_SCALE_OUT_QUEUE",
+            "AUTOCYCLER_SCALE_IN_UTIL", "AUTOCYCLER_SCALE_COOLDOWN_S",
+            "AUTOCYCLER_SCALE_HYSTERESIS"} <= read
+    assert sorted(read - set(DEFAULTS)) == []
+    for name in read:
+        knob = KNOBS[name]
+        default = DEFAULTS[name]
+        assert default == (knob.default or type(default)()), name
+    # a reader passes no default of its own: DEFAULTS is the one source
+    own = re.compile(r"""env_(?:str|int|bool|float)\(\s*["']AUTOCYCLER_\w+["']"""
+                     r"""\s*,""")
+    offenders = [str(f.relative_to(REPO)) for f in PORT.rglob("*.py")
+                 if own.search(f.read_text())]
+    assert offenders == []
+
+
+def test_new_modules_run_without_jax(tmp_path):
+    """top, the fleet scraper and the chaos harness's scan in a process
+    with no jax loaded."""
+    code = (
+        "import json, sys\n"
+        "from pathlib import Path\n"
+        "from autocycler_tpu_torch.obs import federate, top\n"
+        "from autocycler_tpu_torch.utils import chaos\n"
+        "root = Path(sys.argv[1])\n"
+        "(root / 'timeseries.jsonl').write_text(json.dumps({'ts': 1.0, "
+        "'gauges': {}, 'counters': {}, 'host': {'rss_bytes': 1.0}}) + "
+        "'\\n')\n"
+        "assert top.render_top_frame(root)\n"
+        "assert top.render_fleet_frame(root) is None\n"
+        "assert chaos.scan_orphans(root) == []\n"
+        "assert 'jax' not in sys.modules\n"
+        "assert not [m for m in sys.modules if m.startswith("
+        "'autocycler_tpu.') or m == 'autocycler_tpu']\n")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr[-2000:]
 
 
 def test_cli_without_cuda_exits_1(tmp_path, monkeypatch, capsys):

@@ -537,23 +537,263 @@ def test_trace_stage_spans_agree_with_stage_seconds(tmp_path, monkeypatch):
     assert command["parent"] is None and "peak_rss_bytes" in command["mem"]
 
 
-def test_stream_spill_stage_on_a_forced_plan(tmp_path, monkeypatch):
-    asm = make_assemblies(tmp_path, n_assemblies=2, chromosome_len=3000,
-                          plasmid_len=500, seed=8)
+STREAM_FAMILIES = ("autocycler_stream_spill_bytes",
+                   "autocycler_stream_spill_bytes_total",
+                   "autocycler_stream_rle_ratio",
+                   "autocycler_stream_bins_total",
+                   "autocycler_stream_quarantined_bins_total",
+                   "autocycler_stream_orphans_swept_total")
+
+
+def _prom_values(path, names):
+    """{family: summed sample value} of ``names`` in a Prometheus dump."""
+    out = {}
+    for line in Path(path).read_text().splitlines():
+        if line.startswith("#") or not line.strip():
+            continue
+        sample, _, value = line.rpartition(" ")
+        family = sample.split("{", 1)[0]
+        if family in names:
+            out[family] = out.get(family, 0.0) + float(value)
+    return out
+
+
+def _reset_registries():
+    from autocycler_tpu.obs import metrics_registry as jax_registry
+    jax_registry.registry()._reset_for_tests()
+    metrics_registry.reset()
+
+
+def _plant_dead_spill(out):
+    """A killed run's spill dir under ``out/.stream``: a manifest whose pid
+    cannot be alive."""
+    run = out / ".stream" / "run-4194303-deadbeef"
+    run.mkdir(parents=True)
+    (run / "manifest.json").write_text(json.dumps(
+        {"version": 1, "format": 2, "pid": 2 ** 22 + 12345, "k": 51,
+         "sig_k": 11, "n_bins": 5, "counts": None, "spill_bytes": 0}))
+
+
+def _streamed_compresses(tmp_path, monkeypatch, asm):
+    """Both CLIs' compress on a forced five-bin plan, each into an out dir
+    that holds one dead spill dir, each with a trace dir and a
+    Prometheus dump; returns {package: (run dir, {family: value})}."""
     _on_cpu(monkeypatch)
     monkeypatch.setenv("AUTOCYCLER_STREAM_KMERS", "on")
     monkeypatch.setenv("AUTOCYCLER_STREAM_BINS", "5")
     monkeypatch.setenv("AUTOCYCLER_STREAM_CHUNK", "1000")
-    stages = {}
+    runs = {}
     for name, main in (("jax", jax_cli.main), ("port", cli.main)):
+        _reset_registries()
+        _plant_dead_spill(tmp_path / name)
+        dump = tmp_path / f"{name}.prom"
+        monkeypatch.setenv("AUTOCYCLER_METRICS", str(dump))
         run = _cli(main, monkeypatch, tmp_path / f"run_{name}",
                    ["compress", "-i", asm, "-a", tmp_path / name, "-t", "1"])
+        runs[name] = (run, _prom_values(dump, STREAM_FAMILIES))
+        assert not list((tmp_path / name / ".stream").iterdir())
+    return runs
+
+
+def test_stream_spill_stage_on_a_forced_plan(tmp_path, monkeypatch):
+    asm = make_assemblies(tmp_path, n_assemblies=2, chromosome_len=3000,
+                          plasmid_len=500, seed=8)
+    runs = _streamed_compresses(tmp_path, monkeypatch, asm)
+    stages = {}
+    for name, (run, _) in runs.items():
         led = json.loads((run / ledger.LEDGER_JSON).read_text())
         stages[name] = [s for s in led["stages"]
                         if s["stage"] == "stream-spill"]
     assert len(stages["port"]) == 1
     assert stages["port"][0]["extra"] == stages["jax"][0]["extra"]
     assert stages["port"][0]["extra"]["n_bins"] == 5
+    # the stream's registry families, the JAX package's values: the gauge
+    # back at 0 once the run dir is gone, and the dead spill dir swept
+    got, want = runs["port"][1], runs["jax"][1]
+    assert got == want
+    assert set(got) == set(STREAM_FAMILIES) - {
+        "autocycler_stream_quarantined_bins_total"}
+    assert got["autocycler_stream_spill_bytes"] == 0
+    assert got["autocycler_stream_orphans_swept_total"] == 1
+    assert got["autocycler_stream_bins_total"] == \
+        stages["port"][0]["extra"]["bins"]
+    assert got["autocycler_stream_spill_bytes_total"] == \
+        stages["port"][0]["extra"]["spill_bytes"] > 0
+
+
+def test_stream_quarantine_families_equal_the_jax_packages(tmp_path,
+                                                          monkeypatch):
+    """A bin read the fault plan corrupts is quarantined and the compress
+    groups in memory, in both packages: the six families and the files
+    are the same."""
+    asm = make_assemblies(tmp_path, n_assemblies=2, chromosome_len=3000,
+                          plasmid_len=500, seed=9)
+    monkeypatch.setenv("AUTOCYCLER_FAULTS", "stream_read:bin-::1")
+    from autocycler_tpu.utils import resilience as jax_rz
+    from autocycler_tpu_torch.utils import resilience as rz
+    rz.reset_degrades()
+    jax_rz._reset_degrades_for_tests()
+    runs = _streamed_compresses(tmp_path, monkeypatch, asm)
+    got, want = runs["port"][1], runs["jax"][1]
+    assert got == want and set(got) == set(STREAM_FAMILIES)
+    assert got["autocycler_stream_quarantined_bins_total"] == 1
+    assert [e["to"] for e in rz.degrade_events("stream-kmers")] == \
+        ["in-memory"]
+    for name in ("input_assemblies.gfa", "input_assemblies.yaml"):
+        assert (tmp_path / "port" / name).read_bytes() == \
+            (tmp_path / "jax" / name).read_bytes()
+
+
+# JAX dispatch sites ↔ the port's that run on the CPU in one pipeline (the
+# JAX package with AUTOCYCLER_DEVICE_GROUPING=direct, so that its grouping
+# goes through device_dispatch on the CPU): one to one, the same count a
+# stage
+DISPATCH_SITES = {"k-mer grouping sort": "sortnet_pack_rank",
+                  "adjacency segment ops": "adjacency segment ops",
+                  "chain pointer doubling": "chain pointer doubling"}
+# the port's sites with no JAX dispatch on the CPU: there the JAX package
+# takes its host product and its host DPs
+PORT_ONLY_SITES = {"cluster distance matmul", "trim_overlap_dp",
+                   "resolve_medoid_dp"}
+
+
+def _dispatches(run_dir):
+    """(dispatch total, {what: count}, device seconds) of a run's dump: the
+    process's registry so far."""
+    snap = json.loads((run_dir / "metrics.json").read_text())
+
+    def total(name):
+        return sum(v["value"] for v in
+                   (snap.get(name) or {}).get("values", []))
+    per_site = {v["labels"]["what"]: v["count"] for v in
+                (snap.get("autocycler_device_dispatch_seconds") or {})
+                .get("values", [])}
+    return (total("autocycler_device_dispatches_total"), per_site,
+            total("autocycler_device_seconds_total"))
+
+
+def _device_line(render, run_dir):
+    line = next(l for l in render(run_dir).splitlines()
+                if l.startswith("Device vs host:"))
+    return int(re.search(r"across (\d+) dispatch", line).group(1))
+
+
+def test_device_families_and_report_line_equal_the_jax_packages(
+        tmp_path, monkeypatch):
+    from autocycler_tpu.obs import report as jax_report
+    from autocycler_tpu_torch.obs import report
+    asm = make_assemblies(tmp_path, n_assemblies=3, chromosome_len=3000,
+                          plasmid_len=600, seed=5)
+    _on_cpu(monkeypatch)
+    runs = {}
+    for name, main in (("jax", jax_cli.main), ("port", cli.main)):
+        _reset_registries()
+        if name == "jax":
+            monkeypatch.setenv("AUTOCYCLER_DEVICE_GROUPING", "direct")
+        else:
+            monkeypatch.delenv("AUTOCYCLER_DEVICE_GROUPING", raising=False)
+        runs[name] = _pipeline(main, monkeypatch, asm, tmp_path / name,
+                               tmp_path / f"runs_{name}")
+    assert list(runs["port"]) == list(runs["jax"])
+    # the stages ran one after the other in this process: a stage's own
+    # dispatches are its dump's less the previous stage's
+    stages = {}
+    for name, done in runs.items():
+        prev = (0, {}, 0.0)
+        for label, run_dir in done.items():
+            cur = _dispatches(run_dir)
+            stages[name, label] = (
+                cur[0] - prev[0],
+                {k: v - prev[1].get(k, 0) for k, v in cur[1].items()
+                 if v - prev[1].get(k, 0)},
+                cur[2] - prev[2])
+            prev = cur
+    for label, run_dir in runs["port"].items():
+        total, sites, seconds = stages["port", label]
+        jtotal, jsites, jseconds = stages["jax", label]
+        # every dispatch of the stage is one of the mapped sites, with the
+        # JAX package's count where the sites map one to one
+        assert set(sites) <= set(DISPATCH_SITES.values()) | PORT_ONLY_SITES
+        assert set(jsites) <= set(DISPATCH_SITES), label
+        for jsite, site in DISPATCH_SITES.items():
+            assert sites.get(site, 0) == jsites.get(jsite, 0), (label, site)
+        assert total == sum(sites.values()), label
+        assert (seconds > 0) == (total > 0), label
+        # each report's device line reads its dump
+        assert _device_line(lambda d: report.render_report(
+            report.build_report(d)), run_dir) == _dispatches(run_dir)[0]
+        assert _device_line(lambda d: jax_report.render_report(
+            jax_report.build_report(d)), runs["jax"][label]) == \
+            _dispatches(runs["jax"][label])[0]
+    total, sites, seconds = stages["port", "compress"]
+    jtotal, _, jseconds = stages["jax", "compress"]
+    assert total == jtotal == 5 and seconds > 0 and jseconds > 0
+    assert sites["sortnet_pack_rank"] == 3
+    assert stages["port", "cluster"][1] == {"cluster distance matmul": 1}
+    # per kernel, the process's first call and the steady ones apart, as
+    # in JAX: at most one first call a kernel
+    snap = json.loads((runs["port"]["compress"] / "metrics.json").read_text())
+    phases = {}
+    for v in snap["autocycler_device_kernel_seconds"]["values"]:
+        assert v["labels"]["phase"] in ("first", "steady")
+        assert v["labels"]["phase"] == "steady" or v["count"] == 1
+        kernel = v["labels"]["kernel"]
+        phases[kernel] = phases.get(kernel, 0) + v["count"]
+    assert phases == sites
+
+
+def test_device_failures_count_once_and_raise(monkeypatch):
+    """A dispatch that raises counts once in the failures counter (also
+    inside another device block), names itself in the last-failure info,
+    is still a dispatch of the run record, and raises on."""
+    _reset_registries()
+    device.reset_counts()
+    cpu = torch.device("cpu")
+    reg = metrics_registry.registry()
+    with pytest.raises(ValueError, match="bad rows"):
+        with device.device_work("adjacency segment ops", cpu):
+            with device.dp_dispatch("trim_overlap_dp", cpu, rows=1):
+                raise ValueError("bad rows")
+    assert reg.value(timing.DEVICE_FAILURES) == 1
+    last = reg.snapshot()[timing.DEVICE_FAILURE_LAST]["values"][0]["value"]
+    assert last.startswith("adjacency segment ops raised ValueError")
+    assert device.fold_records() == 2
+    assert reg.value(timing.DEVICE_DISPATCHES) == 2
+    assert device.fold_records() == 0          # each record folds once
+    device.reset_counts()
+
+
+def _masked_log(text, out):
+    """LOG_JSON records with the time stamp, the out dir and the run time
+    masked."""
+    records = []
+    for line in text.splitlines():
+        record = json.loads(line)
+        record["ts"] = "T"
+        record["text"] = re.sub(r"Time to run: .*", "Time to run: T",
+                                record["text"].replace(str(out), "OUT"))
+        records.append(record)
+    return records
+
+
+def test_log_json_lines_equal_the_jax_packages(tmp_path, monkeypatch):
+    asm = make_assemblies(tmp_path, n_assemblies=2, chromosome_len=3000,
+                          plasmid_len=500, seed=6)
+    _on_cpu(monkeypatch)
+    monkeypatch.setenv("AUTOCYCLER_LOG_JSON", "1")
+    logs = {}
+    for name, main in (("jax", jax_cli.main), ("port", cli.main)):
+        out = tmp_path / name
+        try:
+            with contextlib.redirect_stderr(io.StringIO()) as err:
+                assert main(["compress", "-i", str(asm), "-a", str(out)]) == 0
+        finally:
+            gc.enable()
+        logs[name] = _masked_log(err.getvalue(), out)
+    assert logs["port"] == logs["jax"]
+    assert {r["type"] for r in logs["port"]} == {"section", "explanation",
+                                                "message"}
+    assert all(set(r) == {"ts", "type", "text"} for r in logs["port"])
 
 
 def test_nothing_is_written_without_a_trace_dir(tmp_path, monkeypatch):

@@ -428,15 +428,24 @@ def test_metrics_healthz_and_slo_match_jax(inputs, tmp_path, monkeypatch,
 
 def test_registry_and_records_survive_jobs(inputs, tmp_path, capsys):
     """No job path resets the registry: after N jobs /metrics counts all N,
-    and the per-dispatch records are folded into the per-kernel series
-    (none left behind), the launch counts untouched."""
+    and each job's dispatch records are folded into the device series
+    (none of a job's left behind), while a record made outside every job
+    is not a job's to fold."""
     from autocycler_tpu_torch import device
     from autocycler_tpu_torch.obs import metrics_registry
+    from autocycler_tpu_torch.utils import timing
     device.reset_counts()
     with device.dp_dispatch("trim_overlap_dp", torch.device("cpu"), rows=1):
-        pass                        # one record for the daemon to fold
-    dispatched = metrics_registry.registry().labeled(
-        "autocycler_device_dispatches_total", "kernel")
+        pass                        # a record of no job
+
+    def dispatched():
+        reg = metrics_registry.registry()
+        per_kind = {e["labels"]["what"]: e["count"] for e in
+                    reg.snapshot()[timing.DEVICE_DISPATCH_HIST]["values"]} \
+            if timing.DEVICE_DISPATCH_HIST in reg.snapshot() else {}
+        return reg.value(timing.DEVICE_DISPATCHES), per_kind
+
+    total0, kinds0 = dispatched()
     before = metrics_registry.registry().value(
         "autocycler_serve_jobs_total", state="done", command="pipeline")
     body = {"assemblies_dir": str(inputs["asm"]), "command": "pipeline"}
@@ -453,11 +462,15 @@ def test_registry_and_records_survive_jobs(inputs, tmp_path, capsys):
         command="pipeline") == before + 3
     assert 'autocycler_serve_jobs_total{command="pipeline",state="done"}' \
         in raw["raw"]
-    assert all(not records for records in device.dp_dispatches.values())
-    folded = metrics_registry.registry().labeled(
-        "autocycler_device_dispatches_total", "kernel")
-    assert folded.get("trim_overlap_dp", 0) >= \
-        dispatched.get("trim_overlap_dp", 0) + 1
+    # the one record left is the one no job made
+    assert [len(r) for r in device.dp_dispatches.values()] == \
+        [1, 0, 0, 0, 0, 0]
+    assert not any(device.work_blocks.values())
+    total, kinds = dispatched()
+    # each compress groups three times (end repair, windows, grams)
+    assert kinds.get("sortnet_pack_rank", 0) >= \
+        kinds0.get("sortnet_pack_rank", 0) + 9
+    assert total >= total0 + 9 + 3 * 2   # + adjacency, chains a compress
     capsys.readouterr()
 
 

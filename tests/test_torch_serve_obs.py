@@ -166,7 +166,7 @@ def test_timeseries_report_and_watch_match_jax_readers(asm, tmp_path,
 
 def test_cli_samples_beside_a_traced_run(asm, tmp_path, monkeypatch, capsys):
     """A traced CLI command writes timeseries.jsonl beside its trace, as the
-    JAX CLI does; report, watch and submit own no run."""
+    JAX CLI does; report, watch, top, serve and submit own no run."""
     from autocycler_tpu_torch import cli
     from autocycler_tpu_torch.commands.compress import compress
     compress(asm, tmp_path / "o", device="cpu")
@@ -187,7 +187,8 @@ def test_cli_samples_beside_a_traced_run(asm, tmp_path, monkeypatch, capsys):
     ticks = (tmp_path / "trace" / "timeseries.jsonl").read_text().splitlines()
     assert len(ticks) >= 2 and json.loads(ticks[-1])["tick"] == len(ticks)
     assert (tmp_path / "trace" / "trace.jsonl").is_file()
-    assert cli.NO_RUN_COMMANDS == {"report", "watch", "serve", "submit"}
+    assert cli.NO_RUN_COMMANDS == {"report", "watch", "top", "serve",
+                                   "submit"}
     capsys.readouterr()
 
 

@@ -26,6 +26,7 @@ from autocycler_tpu.utils import resilience as jax_rz
 from autocycler_tpu_torch import stream as st
 from autocycler_tpu_torch.commands.compress import compress
 from autocycler_tpu_torch.models import Sequence
+from autocycler_tpu_torch.obs import metrics_registry
 from autocycler_tpu_torch.ops import kmers
 from autocycler_tpu_torch.stream import driver, spill
 from autocycler_tpu_torch.stream.binner import StreamBinner
@@ -49,7 +50,13 @@ def _reset():
     jst.set_stream_root(None)
     rz.reset_degrades()
     jax_rz._reset_degrades_for_tests()
-    spill.reset_counters()
+    spill.reset_last_run()
+    metrics_registry.reset()
+
+
+def _metric(name):
+    """The port registry's value of one stream family."""
+    return metrics_registry.registry().value(name)
 
 
 @pytest.fixture(autouse=True)
@@ -317,7 +324,7 @@ def test_bin_files_byte_identical_to_jax(monkeypatch, tmp_path, seqs, bins,
     for name in names:
         assert (ours / name).read_bytes() == (theirs / name).read_bytes(), \
             name
-    assert spill.counters["spill_bytes_total"] == summary["spill_bytes"] \
+    assert _metric(spill.SPILL_BYTES_TOTAL) == summary["spill_bytes"] \
         == sum((ours / n).stat().st_size for n in names
                if n.startswith("bin-"))
     assert summary["records"] == M
@@ -363,7 +370,7 @@ def test_stream_stats_match_jax_and_in_memory(monkeypatch, tmp_path, threads,
             assert a.dtype == np.int64, name
             assert np.array_equal(a, b), name
     assert spill.last_run["workers"] == threads
-    assert spill.counters["spill_bytes"] == 0          # the run dir is gone
+    assert _metric(spill.SPILL_BYTES_GAUGE) == 0          # the run dir is gone
     assert not list((tmp_path / ".stream").glob("run-*"))
 
 
@@ -441,8 +448,8 @@ def test_build_kmer_index_streamed_equals_in_memory(monkeypatch, tmp_path,
     assert run["rle_ratio"] > 1 and run["format"] == 2
     # counted launches are the card's: the plain version on the CPU is none
     assert run["sort_launches"] == run["merge_launches"] == 0
-    assert spill.counters["spill_bytes_total"] == run["spill_bytes"] > 0
-    assert spill.counters["spill_bytes"] == 0
+    assert _metric(spill.SPILL_BYTES_TOTAL) == run["spill_bytes"] > 0
+    assert _metric(spill.SPILL_BYTES_GAUGE) == 0
     assert not list((tmp_path / ".stream").glob("run-*"))
 
 
@@ -493,7 +500,7 @@ def test_corrupt_bin_degrades_visibly(monkeypatch, tmp_path, capsys,
     err = capsys.readouterr().err
     assert "autocycler backend degrade: stream-kmers: stream -> in-memory " \
            "(SpillError: bin " in err
-    assert spill.counters["quarantined_bins_total"] >= 1
+    assert _metric(driver.QUARANTINED_BINS_TOTAL) >= 1
     for name in INDEX_FIELDS:
         assert np.array_equal(getattr(mem, name), getattr(degraded, name)), \
             name
@@ -607,7 +614,7 @@ def test_sweep_orphan_spills(tmp_path):
     (broken / "manifest.json").write_text("{not json")
     assert _quiet(st.sweep_orphan_spills, root) == 2
     assert not dead.exists() and not broken.exists() and live.exists()
-    assert spill.counters["orphans_swept_total"] == 2
+    assert _metric(spill.ORPHANS_SWEPT_TOTAL) == 2
     assert st.sweep_orphan_spills(root) == 0    # idempotent
     # the JAX package reads the port's manifest alike
     assert jax_spill.read_manifest(live) == spill.read_manifest(live)
