@@ -13,6 +13,14 @@ after it. ``serve`` runs that path as a daemon on the card (without one it
 fails with ``Error: ...`` and exit 1 before it binds a socket), ``submit``
 is its client and needs no card, ``report`` and ``watch`` render a run
 dir, and ``top`` a serve root (``--fleet``: a fleet dir of them).
+``doctor`` renders the device probe's forensics without a CUDA call
+(``--probe``: one live probe in a child process).
+
+Every other command starts the device probe at launch (compress, batch
+and serve once they have set its negative cache's dir), and the first
+request for CUDA waits for its outcome: a probe that timed out or failed
+ends the command with ``Error: ...`` and exit 1 before any CUDA call
+(``device.py``). ``AUTOCYCLER_PROBE_WATCH`` starts the probe sentinel.
 
 With ``AUTOCYCLER_TRACE_DIR`` set, a command writes its run record there:
 ``trace.jsonl`` (and ``trace.chrome.json``), ``metrics.json``/``.prom``,
@@ -94,6 +102,27 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-i", "--in_gfa", required=True)
     p.add_argument("-o", "--out_dir")
     p.add_argument("-f", "--out_file")
+
+    p = sub.add_parser("doctor",
+                       help="device forensics: probe history, negative-cache "
+                            "state, environment snapshot and recommended "
+                            "actions (reads state only — no device bring-up)")
+    p.add_argument("-d", "--dir", default=".",
+                   help="run directory holding probe_log.jsonl / "
+                        "device_probe.json (default: cwd)")
+    p.add_argument("--json", action="store_true",
+                   help="emit the structured report as JSON")
+    p.add_argument("--probe", action="store_true",
+                   help="run one live subprocess probe (killable, captures "
+                        "init stderr) before reporting")
+    p.add_argument("--watch", action="store_true",
+                   help="run the probe sentinel in the foreground, printing "
+                        "one JSON outcome per cycle")
+    p.add_argument("--interval", type=float,
+                   help="--watch probe interval in seconds (default: "
+                        "AUTOCYCLER_PROBE_WATCH or 30)")
+    p.add_argument("--cycles", type=int,
+                   help="--watch: stop after this many probe cycles")
 
     p = sub.add_parser("dotplot",
                        help="generate an all-vs-all dotplot from a unitig graph")
@@ -310,6 +339,11 @@ def dispatch(args) -> int:
     elif args.command == "decompress":
         from .commands.decompress import decompress
         decompress(args.in_gfa, args.out_dir, args.out_file)
+    elif args.command == "doctor":
+        from .commands.doctor import doctor
+        return doctor(args.dir, as_json=args.json, watch=args.watch,
+                      probe=args.probe, interval=args.interval,
+                      cycles=args.cycles)
     elif args.command == "dotplot":
         from .commands.dotplot import dotplot
         dotplot(args.input, args.out_png, args.res, args.kmer, args.grid_mode)
@@ -380,8 +414,15 @@ GC_DISABLED_COMMANDS = frozenset({
 
 
 # The commands that never own a trace run, the JAX package's list but for
-# the commands not ported yet (doctor, lint)
-NO_RUN_COMMANDS = frozenset({"report", "watch", "top", "serve", "submit"})
+# lint, not ported yet
+NO_RUN_COMMANDS = frozenset({"report", "doctor", "watch", "top", "serve",
+                             "submit"})
+# The commands that start no probe sentinel and no device probe (they read
+# state, or are clients), and those that start the probe themselves, once
+# they have pointed its negative cache at their dir: the JAX package's
+NO_PROBE_COMMANDS = frozenset({"report", "doctor", "watch", "top",
+                               "submit"})
+OWN_PROBE_COMMANDS = frozenset({"compress", "batch", "serve"})
 
 
 def main(argv=None) -> int:
@@ -409,6 +450,14 @@ def main(argv=None) -> int:
     if owns_run:
         qc.reset()
         ledger.reset()
+    if args.command not in NO_PROBE_COMMANDS:
+        # the probe runs beside the command's host work from here; the
+        # first request for CUDA waits for its outcome (device.py)
+        from . import device
+        from .obs import sentinel
+        sentinel.maybe_start_watcher()
+        if args.command not in OWN_PROBE_COMMANDS:
+            device.start_background_probe()
     try:
         with trace.span(args.command, cat="command",
                         **({"argv": list(argv)} if argv else {})):

@@ -43,7 +43,7 @@ from typing import List, NamedTuple, Optional
 
 import numpy as np
 
-from ..device import resolve_device
+from ..device import resolve_device, start_probe
 from ..metrics import InputAssemblyMetrics
 from ..models import UnitigGraph
 from ..models.simplify import simplify_structure
@@ -251,6 +251,7 @@ def batch(assemblies_parent, out_parent, k_size: int = 51,
     if k_size < 11 or k_size > 501 or k_size % 2 == 0:
         quit_with_error("--kmer must be an odd number between 11 and 501")
     check_threads(threads)
+    start_probe(Path(out_parent) / ".cache", device)
     dev = resolve_device(device)
     mode = fleet_mod.resolve_fleet_mode(fleet)
     log.section_header("Starting autocycler batch")

@@ -18,7 +18,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from ..device import resolve_device
+from ..device import resolve_device, start_probe
 from ..metrics import InputAssemblyDetails, InputAssemblyMetrics, InputContigDetails
 from ..models import Sequence, UnitigGraph
 from ..models.sequence import padded_strand
@@ -62,6 +62,7 @@ def compress(assemblies_dir, autocycler_dir, k_size: int = 51,
     start_time = time.perf_counter()
     check_settings(assemblies_dir, autocycler_dir, k_size)
     check_threads(threads)
+    start_probe(Path(autocycler_dir) / ".cache", device)
     dev = resolve_device(device)
     log.section_header("Starting autocycler compress")
     log.explanation("This command finds all assemblies in the given input directory and "

@@ -36,20 +36,47 @@ counts once in ``autocycler_device_failures_total`` and sets
 ``autocycler_device_failure_last`` (``utils.timing.record_device_failure``),
 then raises on: the port has no fallback. On the CPU the kernel wrappers'
 plain versions are such blocks, under the kernel's name, and are not
-counted as launches.
+counted as launches. A launch, dispatch or block may declare its useful
+work (``flops``, ``bytes_moved``): the fold adds it to
+``autocycler_device_kernel_flops_total`` and ``_bytes_total`` by kernel
+and phase, beside the seconds it divides (``ops.mfu.kernel_rates``). With
+``AUTOCYCLER_XPROF`` set, the first launches, dispatches and blocks of
+each name run under ``torch.profiler`` (``utils.timing.xprof_capture``).
 
 The serve daemon's device token (``utils.timing.enable_device_token``) is
 held across each launch and each dispatch, and across compress's
 adjacency and chains and cluster's distance product
 (:func:`device_work`); with the token on, each block synchronises its
 stream before the token passes on. The launch counts stay until
-:func:`reset_counts`. :func:`probe_report` says what the card is and when
-it was attached, in the JAX package's probe shape.
+:func:`reset_counts`.
+
+The device probe gate (the JAX package's ops/distance.py:24-615, kept here
+beside the consult point, :func:`resolve_device`): before the process's
+first CUDA call, a request for CUDA consults the probe, a child process
+that asks the CUDA driver through libcuda (no torch import) and
+round-trips one tiny op on ``cuda:0`` (``obs.sentinel.subprocess_probe``),
+killed at its deadline. The consult waits for it (counted under
+``utils.timing.device_wait``); a probe still pending past its budget is a
+timeout. A positive
+outcome holds for the process's life. A ``timeout`` or ``error`` outcome,
+live or adopted from a fresh ``device_probe.json``, ends the command with
+``Error:`` before any CUDA call, so a wedged driver costs at most the
+deadline and its retries, not a hang. The JAX gate answers "use the host"
+instead; the port has no host path, and nothing moves to the CPU on any
+outcome. ``CUDA_VISIBLE_DEVICES`` empty or ``-1`` (``pinned``) and a host
+without ``/dev/nvidia*`` (``no-cuda``) answer without a child, and then
+give the error of a host without a card; ``AUTOCYCLER_PROBE_DEADLINE_S``
+<= 0 (``disabled``) skips the probe and attaches directly.
+:func:`probe_report` is the probe's overlap report and the card's name.
 """
 
 from __future__ import annotations
 
 import contextlib
+import glob
+import json
+import os
+import sys
 import threading
 import time
 from typing import Dict, List, Optional, Tuple
@@ -58,6 +85,7 @@ import torch
 
 from .obs import metrics_registry, trace
 from .utils import quit_with_error, timing
+from .utils.env import env_float, env_int
 
 # kernel name -> launches since the last reset_counts()
 launches: Dict[str, int] = {"sortnet_pack_rank": 0, "dotplot_match_grid": 0,
@@ -84,52 +112,472 @@ _unfolded: List[dict] = []
 _first_seen: set = set()
 
 
-# what resolve_device saw of the card: when CUDA was first attached and
-# how long the resolve (and the daemon's kernel loads) took
-_probe: dict = {"state": "unstarted", "resolve_s": 0.0}
+# ---- the device probe gate (the JAX package's ops/distance.py:24-615) ----
+
+_PROBE_LOCK = threading.Lock()
+# the last real probe outcome (short-circuit answers are never cached):
+# {"attached", "seconds", "reason", "kind", "cached", "detail", "probes",
+# "probing"}; a cached outcome holds for the process's life, a negative
+# one until a recovery (notify_probe_recovered) clears it
+_probe_state: dict = {"probes": 0}
+# the background probe: {"started", "resolved", "event", "started_at"
+# (monotonic), "deadline", "resolve_s", "wait_s", "pending_consults",
+# "attempts"}
+_bg_state: dict = {}
+# the on-disk negative cache: one wedged probe costs a deadline, and its
+# outcome (timeout or error only) is kept under the run's dir for
+# AUTOCYCLER_PROBE_NEG_TTL_S, so that the next processes fail at once
+_probe_cache_dir: Optional[str] = None
+_PROBE_CACHE_FILE = "device_probe.json"
+# the gate: one consult at a time (concurrent first calls wait for the one
+# outcome); "passed" once CUDA is attached, with the card's "name". It is
+# re-entrant: a recovery hook fired by the consult's own probe (the
+# recovery capture) asks for CUDA again from the same thread
+_GATE_LOCK = threading.RLock()
+_gate: dict = {"passed": False}
 
 
-def resolve_device(device=None) -> torch.device:
-    """``None`` means CUDA. Raises AutocyclerError when CUDA is asked for and
-    absent, or for a device type the port does not run on."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda":
+def set_probe_cache_dir(path) -> None:
+    """Keep the negative probe cache under ``path`` (compress, batch and
+    the daemon point it at their ``.cache``; None disables), with the probe
+    log beside it when no other dir is set. JAX ops/distance.py:57-69."""
+    global _probe_cache_dir
+    with _PROBE_LOCK:
+        _probe_cache_dir = None if path is None else str(path)
+    from .obs import sentinel
+    sentinel.set_probe_log_dir(path, fallback=True)
+
+
+def notify_probe_recovered() -> None:
+    """The sentinel's hand-back on a false -> true transition: drop the
+    cached failure and the persisted negative, so the next consult probes
+    at once. JAX ops/distance.py:72-88."""
+    with _PROBE_LOCK:
+        cache_dir = _probe_cache_dir
+        if not _probe_state.get("attached"):
+            _probe_state["cached"] = False
+    if cache_dir:
+        try:
+            os.unlink(os.path.join(cache_dir, _PROBE_CACHE_FILE))
+        except OSError:
+            pass
+
+
+def _disk_probe_load() -> Optional[dict]:
+    """A still-fresh persisted negative ({kind, reason, at}), or None.
+    JAX ops/distance.py:96-118."""
+    with _PROBE_LOCK:
+        cache_dir = _probe_cache_dir
+    ttl = env_float("AUTOCYCLER_PROBE_NEG_TTL_S")
+    if not cache_dir or ttl <= 0:
+        return None
+    try:
+        with open(os.path.join(cache_dir, _PROBE_CACHE_FILE)) as f:
+            entry = json.load(f)
+        if entry.get("kind") not in ("timeout", "error"):
+            return None
+        if time.time() - float(entry.get("at", 0)) >= ttl:
+            return None
+        return entry
+    except Exception:  # noqa: BLE001 — a missing or corrupt cache is none
+        return None
+
+
+def _disk_probe_store(attached: bool, reason: str, kind: str) -> None:
+    """Persist a timeout or error; any other outcome clears a stale
+    negative. JAX ops/distance.py:121-141."""
+    with _PROBE_LOCK:
+        cache_dir = _probe_cache_dir
+    if not cache_dir:
+        return
+    path = os.path.join(cache_dir, _PROBE_CACHE_FILE)
+    try:
+        if attached or kind not in ("timeout", "error"):
+            if os.path.exists(path):
+                os.unlink(path)
+            return
+        os.makedirs(cache_dir, exist_ok=True)
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump({"kind": kind, "reason": reason, "at": time.time()}, f)
+        os.replace(tmp, path)
+    except OSError:
+        pass
+
+
+def _record_probe(attached: bool, seconds: float, reason: str,
+                  cache: bool, kind: str, detail: dict = None) -> None:
+    with _PROBE_LOCK:
+        _probe_state.update(attached=attached, seconds=round(seconds, 3),
+                            reason=reason, cached=cache, kind=kind,
+                            detail=detail or {},
+                            probes=_probe_state.get("probes", 0)
+                            + (1 if cache else 0))
+
+
+def device_probe_report() -> dict:
+    """The last probe outcome: {attached (None before any), seconds,
+    reason, kind, probes, detail}. ``kind`` says why: "ok", "no-cuda" (no
+    card, or torch without CUDA), "pinned" (CUDA_VISIBLE_DEVICES hides
+    every card), "timeout" (the child never answered: a wedged driver or
+    card), "error" (CUDA init failed) or "disabled" (no probe). JAX
+    ops/distance.py:155-171."""
+    with _PROBE_LOCK:
+        return {"attached": _probe_state.get("attached"),
+                "seconds": _probe_state.get("seconds"),
+                "reason": _probe_state.get("reason"),
+                "kind": _probe_state.get("kind"),
+                "probes": _probe_state.get("probes", 0),
+                "detail": dict(_probe_state.get("detail") or {})}
+
+
+def _probe_reset() -> None:
+    """Forget every probe outcome, the background probe, the cache dir and
+    the gate, as a fresh process starts."""
+    global _probe_cache_dir
+    with _PROBE_LOCK:
+        _probe_state.clear()
+        _probe_state["probes"] = 0
+        _bg_state.clear()
+        _probe_cache_dir = None
+    with _GATE_LOCK:
+        _gate.clear()
+        _gate["passed"] = False
+
+
+def _short_circuit() -> Optional[Tuple[str, str]]:
+    """(kind, reason) when the answer needs no child and no CUDA call:
+    CUDA_VISIBLE_DEVICES empty or -1 ("pinned"), or no /dev/nvidia* device
+    file ("no-cuda")."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible is not None and visible.strip() in ("", "-1"):
+        return "pinned", f"CUDA_VISIBLE_DEVICES={visible!r} hides every card"
+    if not glob.glob("/dev/nvidia*"):
+        return "no-cuda", "no /dev/nvidia* device file on this host"
+    return None
+
+
+def _cuda_attached() -> bool:
+    """The synchronous probe (JAX ``_tpu_attached``, ops/distance.py:
+    271-377): answers without a child when :func:`_short_circuit` does, or
+    when the deadline (``sentinel.probe_deadline``) is <= 0 ("disabled");
+    else runs one probe. An outcome is cached for the process's life (the
+    gate ends the command on a negative one; a recovery clears it). A
+    fresh persisted negative is adopted without a probe. Every real
+    outcome goes to the probe log."""
+    from .obs import sentinel
+    short = _short_circuit()
+    if short is not None:
+        _record_probe(False, 0.0, short[1], cache=False, kind=short[0])
+        return False
+    timeout = sentinel.probe_deadline()
+    if timeout <= 0:
+        _record_probe(False, 0.0, "AUTOCYCLER_PROBE_DEADLINE_S <= 0 "
+                      "disables the device probe", cache=False,
+                      kind="disabled")
+        return False
+    with _PROBE_LOCK:
+        if _probe_state.get("cached"):
+            return bool(_probe_state["attached"])
+        if _probe_state.get("probing"):
+            return bool(_probe_state.get("attached", False))
+        _probe_state["probing"] = True
+    try:
+        persisted = _disk_probe_load()
+        if persisted is not None:
+            _record_probe(False, 0.0,
+                          f"persisted negative probe: {persisted['reason']}",
+                          cache=True, kind=persisted["kind"])
+            return False
+        attached, reason, kind, detail, elapsed = _probe_attempt(timeout)
+        _record_probe(attached, elapsed, reason, cache=True, kind=kind,
+                      detail=detail)
+        _disk_probe_store(attached, reason, kind)
+        sentinel.record_outcome(
+            dict(detail or {}, attached=attached, kind=kind, reason=reason,
+                 seconds=round(elapsed, 3)), source="gate")
+    finally:
+        with _PROBE_LOCK:
+            _probe_state["probing"] = False
+    return attached
+
+
+def _probe_attempt(timeout: float) -> Tuple[bool, str, str, dict, float]:
+    """One real probe, in a killable child (``sentinel.subprocess_probe``),
+    with the deadline ``timeout``: ``(attached, reason, kind, detail,
+    elapsed)``. The child runs from a thread joined with a small grace past
+    the deadline, so that even a stalled spawn answers a timeout. JAX
+    ops/distance.py:393-451."""
+    result: List[Tuple[bool, str, str, dict]] = []
+
+    def probe() -> None:
+        try:
+            from .obs import sentinel
+            outcome = sentinel.subprocess_probe(timeout)
+        except Exception as e:  # noqa: BLE001 — a failure like any other
+            result.append((False, "probe subprocess machinery failed: "
+                           f"{type(e).__name__}: {e}", "error", {}))
+            return
+        result.append((bool(outcome.get("attached")),
+                       str(outcome.get("reason", "no reason recorded")),
+                       str(outcome.get("kind", "error")), outcome))
+
+    t0 = time.perf_counter()
+    t = threading.Thread(target=probe, daemon=True, name="cuda-probe")
+    t.start()
+    t.join(timeout + min(5.0, 0.5 + 0.1 * timeout))
+    if result:
+        attached, reason, kind, detail = result[0]
+    else:
+        attached, kind, detail = False, "timeout", {}
+        reason = (f"probe did not respond within {timeout:.0f}s "
+                  "(wedged driver or card?)")
+        print(f"autocycler: device {reason}", file=sys.stderr)
+    return attached, reason, kind, detail, time.perf_counter() - t0
+
+
+def _background_deadline() -> float:
+    """The background probe's deadline (``sentinel.probe_deadline``)."""
+    from .obs import sentinel
+    return sentinel.probe_deadline(background=True)
+
+
+def _probe_retries() -> Tuple[int, float]:
+    """(retries, first backoff seconds) of the background probe, spent
+    before a negative is persisted."""
+    retries = max(0, env_int("AUTOCYCLER_PROBE_RETRIES"))
+    return retries, max(0.0, env_float("AUTOCYCLER_PROBE_RETRY_BACKOFF_S"))
+
+
+def _wait_budget(deadline: float) -> float:
+    """The longest a consult waits for the background probe: every
+    attempt's deadline and its grace, and the backoffs between them."""
+    retries, backoff = _probe_retries()
+    return (retries + 1) * (deadline + 5.0) \
+        + sum(backoff * (2 ** i) for i in range(retries))
+
+
+def _background_runner(deadline: float) -> None:
+    """The background probe: retries with backoff around
+    :func:`_probe_attempt`; only the final outcome reaches the caches and
+    the log as source "background" (a failed attempt before a retry logs as
+    "background-retry"). The final outcome is logged after the probe has
+    resolved, so that a recovery hook it fires never holds up a consult
+    waiting for it. JAX ops/distance.py:489-552."""
+    from .obs import sentinel
+    attached, reason, kind, detail = False, "probe never ran", "error", {}
+    t0 = time.perf_counter()
+    attempts = 0
+    final = None
+    try:
+        persisted = _disk_probe_load()
+        if persisted is not None:
+            _record_probe(False, 0.0,
+                          f"persisted negative probe: {persisted['reason']}",
+                          cache=True, kind=persisted["kind"])
+            return
+        retries, backoff = _probe_retries()
+        for i in range(retries + 1):
+            attempts += 1
+            with _PROBE_LOCK:
+                _bg_state["attempts"] = attempts
+            attached, reason, kind, detail, elapsed = \
+                _probe_attempt(deadline)
+            if attached or kind not in ("timeout", "error"):
+                break
+            if i < retries:
+                sentinel.record_outcome(
+                    dict(detail or {}, attached=False, kind=kind,
+                         reason=reason, seconds=round(elapsed, 3),
+                         retry=i + 1), source="background-retry")
+                time.sleep(backoff * (2 ** i))
+        total = time.perf_counter() - t0
+        _record_probe(attached, total, reason, cache=True, kind=kind,
+                      detail=detail)
+        _disk_probe_store(attached, reason, kind)
+        final = dict(detail or {}, attached=attached, kind=kind,
+                     reason=reason, seconds=round(total, 3),
+                     attempts=attempts)
+    finally:
+        with _PROBE_LOCK:
+            _probe_state["probing"] = False
+            _bg_state["resolved"] = True
+            _bg_state["resolve_s"] = round(time.perf_counter() - t0, 3)
+            event = _bg_state.get("event")
+        if event is not None:
+            event.set()
+    if final is not None:
+        sentinel.record_outcome(final, source="background")
+
+
+def start_background_probe() -> bool:
+    """Start the probe in a daemon thread, so that it runs beside the
+    process's host work; the first call of a process does, later calls do
+    nothing. Returns whether a thread started: a short-circuit, a disabled
+    deadline or a known outcome resolves at once, without a child. JAX
+    ops/distance.py:555-599."""
+    with _PROBE_LOCK:
+        if _bg_state.get("started"):
+            return False
+        _bg_state.update(started=True, resolved=False, wait_s=0.0,
+                         pending_consults=0, attempts=0,
+                         started_at=time.monotonic(),
+                         event=threading.Event())
+        already = _probe_state.get("cached")
+        probing = _probe_state.get("probing")
+    deadline = _background_deadline()
+    if already or probing or _short_circuit() is not None or deadline <= 0:
+        if not probing:
+            _cuda_attached()
+        with _PROBE_LOCK:
+            _bg_state["resolved"] = True
+            _bg_state["resolve_s"] = 0.0
+            event = _bg_state.get("event")
+        event.set()
+        return False
+    with _PROBE_LOCK:
+        _probe_state["probing"] = True
+        _bg_state["deadline"] = deadline
+    threading.Thread(target=_background_runner, args=(deadline,), daemon=True,
+                     name="cuda-probe-background").start()
+    return True
+
+
+def device_attached(wait: bool = False) -> bool:
+    """The consult of the probe. While the background probe is pending,
+    ``wait=False`` answers the last known state at once (and counts the
+    consult), ``wait=True`` blocks until it resolves, for at most
+    :func:`_wait_budget`, counted under ``utils.timing.device_wait``; a
+    probe still pending then is a timeout, kept in memory and on disk.
+    Otherwise the synchronous probe (:func:`_cuda_attached`). JAX
+    ops/distance.py:602-647."""
+    with _PROBE_LOCK:
+        pending = _bg_state.get("started") and not _bg_state.get("resolved")
+        if pending and not wait:
+            _bg_state["pending_consults"] = \
+                _bg_state.get("pending_consults", 0) + 1
+            return bool(_probe_state.get("attached", False))
+        event = _bg_state.get("event")
+        started_at = _bg_state.get("started_at", 0.0)
+        deadline = _bg_state.get("deadline", 0.0)
+    if pending and event is not None:
+        budget = _wait_budget(deadline)
+        remaining = max(0.0, budget - (time.monotonic() - started_at))
         t0 = time.perf_counter()
-        if not torch.cuda.is_available():
-            quit_with_error("no CUDA device is available; the port runs its "
-                            "device path on an NVIDIA GPU")
-        if _probe["state"] != "attached":
-            _probe.update(state="attached", name=torch.cuda.get_device_name(
-                dev.index if dev.index is not None else 0))
-            note_attach_seconds(time.perf_counter() - t0)
-    elif dev.type != "cpu":
-        quit_with_error(f"unsupported device {dev}: use cuda or cpu")
-    return dev
+        with timing.device_wait("probe future"):
+            resolved = event.wait(remaining)
+        with _PROBE_LOCK:
+            _bg_state["wait_s"] = round(_bg_state.get("wait_s", 0.0)
+                                        + time.perf_counter() - t0, 3)
+        if not resolved:
+            reason = (f"the background probe did not resolve within its "
+                      f"budget of {budget:.0f}s (wedged driver or card?)")
+            _record_probe(False, time.monotonic() - started_at, reason,
+                          cache=True, kind="timeout")
+            _disk_probe_store(False, reason, "timeout")
+            return False
+    return _cuda_attached()
 
 
-def note_attach_seconds(seconds: float) -> None:
-    """Add ``seconds`` of attach work (the resolve, the kernels' build and
-    load at daemon start) to the probe report's ``resolve_s``."""
-    _probe["resolve_s"] = round(_probe["resolve_s"] + seconds, 6)
+def probe_overlap_report() -> dict:
+    """The probe's ledger for the run record, ``/healthz``, ``doctor`` and
+    ``watch``: ``state`` (unstarted, pending, attached or failed), ``kind``,
+    ``resolve_s`` (the probe's wall from start to outcome), ``wait_s``
+    (seconds callers blocked on it), ``overlap_saved_s`` (resolve_s -
+    wait_s: the probe's time hidden behind host work), ``pending_consults``,
+    ``attempts`` and ``deadline_s``. JAX ops/distance.py:650-681."""
+    with _PROBE_LOCK:
+        started = _bg_state.get("started", False)
+        resolved = _bg_state.get("resolved", False)
+        resolve_s = _bg_state.get("resolve_s")
+        wait_s = _bg_state.get("wait_s", 0.0)
+        attached = _probe_state.get("attached")
+        kind = _probe_state.get("kind")
+        pending_consults = _bg_state.get("pending_consults", 0)
+        attempts = _bg_state.get("attempts", 0)
+        deadline = _bg_state.get("deadline")
+    if not started:
+        state = "unstarted"
+    elif not resolved:
+        state = "pending"
+    else:
+        state = "attached" if attached else "failed"
+    overlap = None
+    if resolve_s is not None:
+        overlap = round(max(0.0, resolve_s - wait_s), 3)
+    return {"state": state, "kind": kind, "resolve_s": resolve_s,
+            "wait_s": round(wait_s, 3), "overlap_saved_s": overlap,
+            "pending_consults": pending_consults, "attempts": attempts,
+            "deadline_s": deadline}
 
 
 def probe_report() -> dict:
-    """The card's probe report (``/healthz``'s and each time-series tick's
-    ``probe``), with the keys of the JAX package's ``probe_overlap_report``
-    that the port can fill from what it did: ``state`` is ``attached``
-    once :func:`resolve_device` resolved CUDA, else ``unstarted``; ``kind``
-    is ``cuda``; ``resolve_s`` the resolve and kernel-load seconds (None
-    before); ``wait_s`` 0 (no probe runs beside the pipeline, so nothing
-    waits on one); and, once attached, the card's ``name``. The JAX
-    probe's overlap, consult and attempt fields are left out: no probe
-    runs, so there is nothing to report in them."""
-    attached = _probe["state"] == "attached"
-    report = {"state": _probe["state"], "kind": "cuda",
-              "resolve_s": _probe["resolve_s"] if attached else None,
-              "wait_s": 0.0}
-    if "name" in _probe:
-        report["name"] = _probe["name"]
+    """:func:`probe_overlap_report` and, once CUDA is attached, the card's
+    ``name``: ``/healthz``'s and each time-series tick's ``probe``."""
+    report = probe_overlap_report()
+    if "name" in _gate:
+        report["name"] = _gate["name"]
     return report
+
+
+def consult_probe() -> bool:
+    """Starts the probe if no one did, waits for its outcome, and ends the
+    command with ``Error:`` on a timeout or an error, before any CUDA
+    call; else returns whether the probe attached."""
+    start_background_probe()
+    attached = device_attached(wait=True)
+    report = device_probe_report()
+    if not attached and report["kind"] in ("timeout", "error"):
+        quit_with_error(
+            f"the device probe failed ({report['kind']}): "
+            f"{report['reason']}. No CUDA call was made; run "
+            "`autocycler doctor` (python -m autocycler_tpu_torch doctor) "
+            "for a diagnosis")
+    return attached
+
+
+def _consult_gate(dev: torch.device) -> None:
+    """The gate of the process's first CUDA call: :func:`consult_probe`,
+    then attaches CUDA (the error of a host without a card if none
+    answers) and keeps the card's name; a passed gate is not consulted
+    again."""
+    with _GATE_LOCK:
+        if _gate["passed"]:
+            return
+        consult_probe()
+        if not torch.cuda.is_available():
+            quit_with_error("no CUDA device is available; the port runs its "
+                            "device path on an NVIDIA GPU")
+        _gate["name"] = torch.cuda.get_device_name(
+            dev.index if dev.index is not None else 0)
+        # a disabled probe attaches directly: the card answered all the same
+        with _PROBE_LOCK:
+            _probe_state["attached"] = True
+        _gate["passed"] = True
+
+
+def start_probe(cache_dir, device=None) -> None:
+    """For a command that will ask for CUDA (``device`` None or a CUDA
+    device): keep the negative probe cache (and the probe log) under
+    ``cache_dir``, then start the background probe; the JAX package's
+    compress, batch and daemon do the same."""
+    if torch.device("cuda" if device is None else device).type == "cuda":
+        set_probe_cache_dir(cache_dir)
+        start_background_probe()
+
+
+def resolve_device(device=None) -> torch.device:
+    """``None`` means CUDA. The first request for CUDA in a process goes
+    through the probe gate (:func:`_consult_gate`). Raises AutocyclerError
+    when CUDA is asked for and the probe failed or no card answers, or for
+    a device type the port does not run on."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not _gate["passed"]:
+            _consult_gate(dev)
+    elif dev.type != "cpu":
+        quit_with_error(f"unsupported device {dev}: use cuda or cpu")
+    return dev
 
 
 def _stream_sync(device: torch.device):
@@ -140,15 +588,16 @@ def _stream_sync(device: torch.device):
 
 
 def _note(what: str, item, source: list, events=None,
-          host_s: Optional[float] = None) -> None:
+          host_s: Optional[float] = None, work: tuple = (None, None)
+          ) -> None:
     """Keeps one launch's, dispatch's or block's record for the next
-    :func:`fold_records`."""
+    :func:`fold_records`, with its declared ``work`` (flops, bytes)."""
     with _count_lock:
         phase = "steady" if what in _first_seen else "first"
         _first_seen.add(what)
         _unfolded.append({"what": what, "events": events, "host_s": host_s,
                           "phase": phase, "owner": trace.current_run(),
-                          "item": item, "source": source})
+                          "item": item, "source": source, "work": work})
 
 
 def _failed(what: str, e: BaseException) -> None:
@@ -202,46 +651,59 @@ def _timed(what: str, device: torch.device):
 
 
 @contextlib.contextmanager
-def device_work(name: str, device: torch.device):
+def _device_span(name: str, device: torch.device):
+    """The device token, the ``AUTOCYCLER_XPROF`` capture and the
+    ``cat="device"`` span (linking the capture) around one block."""
+    with timing.xprof_capture(name) as xprof, \
+            timing.device_token(name, _stream_sync(device)), \
+            trace.span(name, cat="device",
+                       **({"xprof": xprof} if xprof else {})):
+        yield
+
+
+@contextlib.contextmanager
+def device_work(name: str, device: torch.device, flops: float = None,
+                bytes_moved: float = None):
     """Device work that is neither a kernel launch nor a recorded dispatch
     (compress's adjacency and chains, cluster's distance product, and off
     the card the kernels' plain versions): one dispatch of the run record,
     held under the device token when it is on, and synchronised before
-    the token passes on."""
+    the token passes on. ``flops`` and ``bytes_moved`` declare its useful
+    work."""
     record: dict = {}
     with _count_lock:
         source = work_blocks.setdefault(name, [])
         source.append(record)
     t: dict = {}
     try:
-        with timing.device_token(name, _stream_sync(device)), \
-                trace.span(name, cat="device"), _timed(name, device) as t:
+        with _device_span(name, device), _timed(name, device) as t:
             yield
     finally:
         record.update((key, t[key]) for key in ("events", "host_s")
                       if key in t)
-        _note(name, record, source, t.get("events"), t.get("host_s"))
+        _note(name, record, source, t.get("events"), t.get("host_s"),
+              (flops, bytes_moved))
 
 
 @contextlib.contextmanager
-def kernel_launch(name: str, device: torch.device):
+def kernel_launch(name: str, device: torch.device, flops: float = None,
+                  bytes_moved: float = None):
     """One launch of kernel ``name``: counts it, and times with CUDA events
     everything enqueued on the current stream of ``device`` inside the
     block (a kernel made of several passes and their bookkeeping is one
     launch). Yields the stream's handle for the C entry points. A launch
     that raises is not counted, but is a dispatch and a device failure of
-    the run record."""
+    the run record. ``flops`` and ``bytes_moved`` declare its useful
+    work."""
     t: dict = {}
     launched = False
     try:
-        with timing.device_token(name, _stream_sync(device)), \
-                trace.span(name, cat="device"), \
-                _event_timed(name, device) as t:
+        with _device_span(name, device), _event_timed(name, device) as t:
             yield t["stream"].cuda_stream
         launched = True
     finally:
         if launched:
-            record_launch(name, *t["events"])
+            record_launch(name, *t["events"], work=(flops, bytes_moved))
         elif "events" in t:
             _note(name, None, None, t["events"])
 
@@ -252,30 +714,33 @@ def check(name: str, err: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
-def launch(name: str, device: torch.device, fn, *args) -> None:
+def launch(name: str, device: torch.device, fn, *args, flops: float = None,
+           bytes_moved: float = None) -> None:
     """One launch of kernel ``name`` through its C entry point ``fn(*args,
     stream)``, timed and counted by :func:`kernel_launch`. Raises on a
     launch the runtime refused (``fn`` returns its CUDA error)."""
-    with kernel_launch(name, device) as stream:
+    with kernel_launch(name, device, flops, bytes_moved) as stream:
         check(name, fn(*args, stream))
 
 
 def record_launch(name: str, start: torch.cuda.Event,
-                  end: torch.cuda.Event) -> None:
+                  end: torch.cuda.Event, work: tuple = (None, None)) -> None:
     # batch's fleet runner repairs the next isolates' ends on pool threads
     # while the main thread builds a graph: both launch the grouping
     pair = (start, end)
     with _count_lock:
         launches[name] += 1
         _events[name].append(pair)
-    _note(name, pair, _events[name], pair)
+    _note(name, pair, _events[name], pair, work=work)
 
 
 @contextlib.contextmanager
-def dp_dispatch(name: str, device: torch.device, **shape):
+def dp_dispatch(name: str, device: torch.device, flops: float = None,
+                bytes_moved: float = None, **shape):
     """One dispatch of the torch-op DP ``name`` on ``device``, recorded with
     its ``shape`` (for example rows, jobs or pairs, cells); on the card,
-    timed with CUDA events around everything enqueued inside the block."""
+    timed with CUDA events around everything enqueued inside the block.
+    ``flops`` and ``bytes_moved`` declare its useful work."""
     record = dict(shape)
     if device.type == "cuda":
         record["events"] = None         # in flight until the block ends
@@ -283,14 +748,13 @@ def dp_dispatch(name: str, device: torch.device, **shape):
         dp_dispatches[name].append(record)
     t: dict = {}
     try:
-        with timing.device_token(name, _stream_sync(device)), \
-                trace.span(name, cat="device"), _timed(name, device) as t:
+        with _device_span(name, device), _timed(name, device) as t:
             yield
     finally:
         if "events" in t:
             record["events"] = t["events"]
         _note(name, record, dp_dispatches[name], t.get("events"),
-              t.get("host_s"))
+              t.get("host_s"), (flops, bytes_moved))
 
 
 def dp_summary(name: str) -> dict:
@@ -367,6 +831,15 @@ def fold_records(owner=_ANY, drop: bool = False) -> int:
                     help="per-kernel dispatch seconds, split first call "
                          "vs steady state",
                     kernel=r["what"], phase=r["phase"])
+        flops, bytes_moved = r["work"]
+        if flops:
+            reg.counter_inc(timing.DEVICE_KERNEL_FLOPS, float(flops),
+                            help="useful FLOPs dispatched per kernel",
+                            kernel=r["what"], phase=r["phase"])
+        if bytes_moved:
+            reg.counter_inc(timing.DEVICE_KERNEL_BYTES, float(bytes_moved),
+                            help="useful HBM bytes moved per kernel",
+                            kernel=r["what"], phase=r["phase"])
     if drop:
         with _count_lock:
             gone: Dict[int, set] = {}

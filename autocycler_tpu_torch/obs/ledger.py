@@ -28,8 +28,10 @@ another stack:
 - ``caches``: ``compile`` names the kernel build dir
   (``autocycler_tpu_torch/_build/``, where nvcc's outputs are kept by a
   hash of their source: the port's counterpart of the XLA compile cache),
-  and there is no ``probe`` entry until the device-probe sentinel is
-  ported.
+  and ``probe`` (the JAX package's ``recoveries``, ``last`` and
+  ``negative_cache``) also holds ``overlap``, the device probe's overlap
+  report (``device.probe_overlap_report``: its resolve, wait and overlap
+  seconds in the run's process).
 """
 
 from __future__ import annotations
@@ -182,7 +184,9 @@ def _versions() -> dict:
 
 def _cache_lineage() -> dict:
     """Hit/miss lineage for the warm-start layers: the parse and end-repair
-    caches (metrics registry) and the kernel build dir."""
+    caches (metrics registry) and the kernel build dir; and the device
+    probe's recoveries, last logged outcome, negative cache and overlap
+    report."""
     reg = metrics_registry.registry()
     lineage: dict = {}
     for which in ("parse", "repair"):
@@ -194,6 +198,23 @@ def _cache_lineage() -> dict:
         }
     from ..ops._build import BUILD_DIR
     lineage["compile"] = {"enabled": True, "dir": str(BUILD_DIR)}
+    probe: dict = {
+        "recoveries": int(reg.value("autocycler_probe_recoveries_total")),
+    }
+    try:
+        from .. import device
+        from . import sentinel
+        tail = sentinel.read_probe_log(limit=1)
+        if tail:
+            probe["last"] = tail[-1]
+        log_path = sentinel.probe_log_path()
+        if log_path is not None:
+            neg = log_path.parent / "device_probe.json"
+            probe["negative_cache"] = neg.is_file()
+        probe["overlap"] = device.probe_overlap_report()
+    except Exception:  # noqa: BLE001 — provenance must not fail the run
+        pass
+    lineage["probe"] = probe
     return lineage
 
 

@@ -7,8 +7,8 @@ Every observability surface before this one (spans, the registry snapshot,
 true at the end?". The sampler answers "how did it evolve": a daemon thread
 periodically snapshots the metrics registry, the host load (loadavg,
 /proc/stat busy fraction, RSS), the card's bytes in use
-(``device_bytes_in_use``, once CUDA is up) and its probe report
-(``device.probe_report``) into one JSON line per tick in
+(``device_bytes_in_use``, once CUDA is up) and the device probe's
+overlap report (``device.probe_report``) into one JSON line per tick in
 ``timeseries.jsonl`` under the run or serve root. The CLI starts one beside
 a traced run, the serve daemon one in its root.
 
@@ -22,8 +22,8 @@ Design constraints, in order:
 - **Bounded size.** Counters are delta-encoded per tick (each line is
   self-contained — rotation never breaks decodability) and the file is
   rotated to the newest ``AUTOCYCLER_TIMESERIES_MAX`` lines with the same
-  tempfile + atomic-replace pattern as the JAX package's
-  ``probe_log.jsonl``, so a weeks-long daemon cannot grow it unboundedly.
+  tempfile + atomic-replace pattern as
+  ``probe_log.jsonl`` (obs/sentinel.py), so a weeks-long daemon cannot grow it unboundedly.
 - **Torn-line safe readers.** A sampler killed mid-write leaves a partial
   final line; :func:`read_timeseries` only consumes up to the last
   newline and skips anything unparseable, mirroring the

@@ -1,6 +1,6 @@
 """`autocycler watch <dir>`: follow a run's trace cross-process, as the
-JAX package's obs/watch.py renders it (with no async-probe line unless
-the run dir holds a ``probe_log.jsonl``).
+JAX package's obs/watch.py renders it, with the async-probe line from
+the run dir's ``probe_log.jsonl`` (obs/sentinel.py).
 
 The span tracer streams ``trace.jsonl`` one record per *closed* span, so a
 separate process can tail the file and render the run as it happens —
@@ -117,34 +117,14 @@ def _fmt_metrics(metrics: dict) -> str:
     return " ".join(bits)
 
 
-PROBE_LOG = "probe_log.jsonl"
-
-
-def _read_probe_log(path: Path, limit: int) -> List[dict]:
-    """The tail of a probe log (most recent last); malformed lines are
-    skipped, a missing file is an empty history."""
-    try:
-        lines = path.read_text().splitlines()
-    except OSError:
-        return []
-    entries = []
-    for line in lines:
-        line = line.strip()
-        if not line:
-            continue
-        try:
-            entries.append(json.loads(line))
-        except ValueError:
-            continue
-    return entries[-limit:]
-
-
 def _async_probe_line(run_dir: Path) -> Optional[str]:
-    """The async-probe state, reconstructed from the run dir's
-    ``probe_log.jsonl`` (the JAX package's sentinel writes one; the port
-    has no probe beside its pipeline, so its runs have none). None when
-    no probe outcome is logged."""
-    entries = _read_probe_log(Path(run_dir) / PROBE_LOG, limit=50)
+    """The run's async-probe state, reconstructed from its
+    ``probe_log.jsonl`` (the watcher cannot see the worker's in-memory
+    probe). None when no probe outcome is logged yet: rendered as
+    pending by the caller."""
+    from . import sentinel
+    entries = sentinel.read_probe_log(Path(run_dir) / sentinel.PROBE_LOG,
+                                      limit=50)
     last = next((e for e in reversed(entries)
                  if "attached" in e and "type" not in e), None)
     if last is None:
@@ -208,6 +188,9 @@ def render_frame(run_dir, records: List[dict]) -> str:
     if probe_line:
         lines.append("")
         lines.append(probe_line)
+    elif not finish and run:
+        lines.append("")
+        lines.append("Async probe: pending (no outcome logged yet)")
 
     if spans:
         isolates: Dict[str, dict] = {}

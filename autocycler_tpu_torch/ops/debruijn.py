@@ -136,7 +136,11 @@ def build_chains(index: KmerIndex) -> Chains:
 
     with substage("chains"):
         next_int = internal_edges(index)
-        with device_work("chain pointer doubling", index.device):
+        # the JAX package's declared traffic: int32 next and head arrays,
+        # read and written on each of the ceil(log2 U) doubling rounds
+        with device_work("chain pointer doubling", index.device,
+                         bytes_moved=4.0 * U * (
+                             2 * np.ceil(np.log2(max(U, 2))) + 4)):
             members, chain_off, chain_is_cycle = chains_device(
                 next_int, index.device)
 

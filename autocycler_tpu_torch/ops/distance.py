@@ -14,7 +14,12 @@ term and partial sum is a non-negative integer no larger than a weighted
 row sum, so below 2**53 the product is exact in any summation order. It is
 cast to int64, and the one float expression of the JAX package
 (:func:`_intersections_to_matrix`) runs in numpy, so the distances are
-bit-identical to the JAX package's ``Mw @ M.T``.
+bit-identical to the JAX package's ``Mw @ M.T``, whatever row blocks
+the JAX package's ``AUTOCYCLER_DISTANCE_BLOCK`` gives its host path: the
+port contracts the whole operand at once (the card holds it). The product
+declares its useful work, 2 S U S flops for S contigs and U unitigs (the
+JAX package pads S and U to buckets for its compile cache; the port does
+not pad).
 """
 
 from __future__ import annotations
@@ -69,7 +74,9 @@ def intersections(M: np.ndarray, w: np.ndarray, device=None) -> np.ndarray:
     if Mw.size and int(Mw.sum(axis=-1).max()) >= EXACT_FLOAT64:
         raise ValueError("a contig's weighted path length reaches 2**53: the "
                          "float64 distance contraction would not be exact")
-    with device_work("cluster distance matmul", dev):
+    S, U = M.shape
+    with device_work("cluster distance matmul", dev,
+                     flops=2.0 * S * U * S):
         mw = torch.from_numpy(Mw).to(dev, torch.float64)
         m = torch.from_numpy(M).to(dev, torch.float64)
         return torch.matmul(mw, m.T).cpu().numpy().astype(np.int64)

@@ -195,8 +195,19 @@ def match_grid_cuda(a_words: torch.Tensor, b_words: torch.Tensor,
     if ga and gb:
         _device.launch(KERNEL_WORDS, a_words.device, _lib().match_grid_words,
                        a_words.data_ptr(), n_a, b_words.data_ptr(), n_b, W,
-                       tile_a, tile_b, out.data_ptr())
+                       tile_a, tile_b, out.data_ptr(),
+                       **_grid_work(a_words, b_words, ga, gb, W + 1))
     return out
+
+
+def _grid_work(a_words, b_words, ga: int, gb: int, ops_per_cell: float
+               ) -> dict:
+    """A grid's declared work (``ops.mfu``'s counts): ``ops_per_cell`` over
+    its cells, and its words read once and its counts written once."""
+    cells = float(a_words.shape[1]) * float(b_words.shape[1])
+    return {"flops": ops_per_cell * cells,
+            "bytes_moved": 4.0 * (a_words.numel() + b_words.numel()
+                                  + ga * gb)}
 
 
 def match_grid(a_words: torch.Tensor, b_words: torch.Tensor,
@@ -207,7 +218,10 @@ def match_grid(a_words: torch.Tensor, b_words: torch.Tensor,
     launch)."""
     if a_words.is_cuda:
         return match_grid_cuda(a_words, b_words, tile_a, tile_b)
-    with _device.device_work(KERNEL_WORDS, a_words.device):
+    _check_words(a_words, b_words)
+    ga, gb = _grid(a_words.shape[1], b_words.shape[1], tile_a, tile_b)
+    with _device.device_work(KERNEL_WORDS, a_words.device, **_grid_work(
+            a_words, b_words, ga, gb, a_words.shape[0] + 1)):
         return match_grid_plain(a_words, b_words, tile_a, tile_b)
 
 
@@ -335,6 +349,7 @@ def match_grid_mxu_cuda(a_words: torch.Tensor, b_words: torch.Tensor, k: int,
     a_pm = F.pad(expand_pm1_words(a_words, k, dtype=dtype), (0, depth - 2 * k))
     b_pm = F.pad(expand_pm1_words(b_words, k, dtype=dtype), (0, depth - 2 * k))
     is_int8 = int(dtype == torch.int8)
+    work = _grid_work(a_words, b_words, ga, gb, 4.0 * k)
     if k <= WGMMA_MAX_K:
         a_core = pm1_core_layout(a_pm, WGMMA_BAND)
         b_core = pm1_core_layout(b_pm, WGMMA_STAGE)
@@ -342,12 +357,12 @@ def match_grid_mxu_cuda(a_words: torch.Tensor, b_words: torch.Tensor, k: int,
                        _lib().match_grid_pm1_wgmma, a_core.data_ptr(),
                        b_core.data_ptr(), depth * dtype.itemsize, 2 * k,
                        is_int8, tile_a, tile_b, -(-n_a // WGMMA_BAND),
-                       -(-n_b // WGMMA_STAGE), ga, gb, out.data_ptr())
+                       -(-n_b // WGMMA_STAGE), ga, gb, out.data_ptr(), **work)
     else:
         a_pm, b_pm = a_pm.contiguous(), b_pm.contiguous()
         _device.launch(KERNEL_PM1, a_words.device, _lib().match_grid_pm1,
                        a_pm.data_ptr(), n_a, b_pm.data_ptr(), n_b, depth,
-                       2 * k, is_int8, tile_a, tile_b, out.data_ptr())
+                       2 * k, is_int8, tile_a, tile_b, out.data_ptr(), **work)
     return out
 
 

@@ -362,7 +362,10 @@ def build_kmer_index(sequences, k: int, device=None,
         gram_gid = scatter_gid(gorder, ggid_sorted).long()
         G = int(ggid_sorted[-1]) + 1 if len(gram_starts) else 0
         rep_byte = _to_host(rep_byte_d)
-    with substage("adjacency"), device_work("adjacency segment ops", dev):
+    # the JAX package's declared traffic: two int32 gram-id reads and
+    # three int32 writes (out, in, successor) per unique k-mer
+    with substage("adjacency"), device_work("adjacency segment ops", dev,
+                                            bytes_moved=20.0 * U):
         out_d, in_d, succ_d = adjacency(gram_gid[:U], gram_gid[U:], G)
         prefix_gid = _to_host(gram_gid[:U])
         suffix_gid = _to_host(gram_gid[U:])

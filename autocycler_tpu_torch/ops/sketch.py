@@ -280,7 +280,8 @@ def sketch_intersections(S: np.ndarray, device=None) -> np.ndarray:
     real = (flat != int(SENTINEL)).reshape(1, n, s)
     inter = torch.empty((n, n), dtype=torch.int64, device=dev)
     chunk = max(1, GRID_CHUNK_BYTES // max(1, 8 * n * s))
-    with dp_dispatch("cluster_sketch_grid", dev, n=n, s=s, lookups=n * n * s):
+    with dp_dispatch("cluster_sketch_grid", dev, n=n, s=s, lookups=n * n * s,
+                     flops=2.0 * n * n * s):
         for b0 in range(0, n, chunk):
             targets = rows[b0:b0 + chunk]
             c = targets.shape[0]

@@ -31,6 +31,7 @@ from typing import List, Optional, Tuple
 import torch
 
 from .. import device as _device
+from .mfu import grouping_bytes
 
 SYMS_PER_WORD = 13          # base 5: 5**13 < 2**31
 INT32_MAX = 2**31 - 1
@@ -426,8 +427,18 @@ def pack_rank_cuda(codes: torch.Tensor, starts: torch.Tensor,
     if len(starts) == 0:
         empty = torch.zeros(0, dtype=torch.int32, device=starts.device)
         return empty, empty.clone()
-    with _device.kernel_launch(KERNEL, codes.device) as stream:
+    with _device.kernel_launch(KERNEL, codes.device,
+                               bytes_moved=_work_bytes(codes, starts, k)
+                               ) as stream:
         return partition_rank(codes, starts, k, CudaKernels(stream))
+
+
+def _work_bytes(codes: torch.Tensor, starts: torch.Tensor, k: int) -> int:
+    """The grouping's declared bytes (``ops.mfu.grouping_bytes``), counting
+    as covered the code bytes of k bytes a window, up to the whole buffer:
+    the bound's count when the windows' ranges cover the codes, as every
+    compress's do, and above it when they leave gaps."""
+    return grouping_bytes(min(codes.numel(), k * len(starts)), len(starts))
 
 
 def pack_rank(codes: torch.Tensor, starts: torch.Tensor,
@@ -437,7 +448,8 @@ def pack_rank(codes: torch.Tensor, starts: torch.Tensor,
     tensors (a dispatch of the run record, not a launch)."""
     if codes.is_cuda:
         return pack_rank_cuda(codes, starts, k)
-    with _device.device_work(KERNEL, codes.device):
+    with _device.device_work(KERNEL, codes.device,
+                             bytes_moved=_work_bytes(codes, starts, k)):
         return pack_rank_plain(codes, starts, k)
 
 

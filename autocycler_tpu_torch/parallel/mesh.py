@@ -60,10 +60,15 @@ class Mesh:
 
 def _device_list(n_devices: Optional[int], devices: Optional[Sequence]
                  ) -> List[torch.device]:
-    """``devices`` as torch devices, else every CUDA device; the first
-    ``n_devices`` of them. Refuses to shrink: a request for more devices
-    than there are raises."""
+    """``devices`` as torch devices, else every CUDA device, listed after
+    the device probe's consult (a probe that timed out or failed ends the
+    run with ``Error:`` before any CUDA call, as the JAX package's mesh
+    refuses to block on a wedged device); the first ``n_devices`` of
+    them. Refuses to shrink: a request for more devices than there are
+    raises."""
     if devices is None:
+        from ..device import consult_probe
+        consult_probe()
         devices = [torch.device(f"cuda:{i}")
                    for i in range(torch.cuda.device_count())]
     else:

@@ -19,7 +19,8 @@ Routes (all JSON unless noted):
 - ``GET  /metrics``         live Prometheus text exposition of the
                             process-wide metrics registry
 - ``GET  /healthz``         daemon liveness + queue/job counts + the
-                            card's probe report
+                            device probe's overlap report and the card's
+                            name
 - ``POST /shutdown``        graceful stop (finish running jobs, exit)
 
 ``POST /jobs`` also accepts a batch body (``{"batch": [...]}``): the
@@ -468,13 +469,15 @@ class ServeHandle:
 
 
 def warm_process(root, device=None):
-    """What a daemon does once before its first job: resolve the device
-    (an error without a card), point the warm-start cache at
+    """What a daemon does once before its first job: start the device
+    probe (its negative cache and log under ``<root>/.cache``), resolve
+    the device (an error without a card or after a failed probe), point
+    the warm-start cache at
     ``<root>/.cache`` unless ``AUTOCYCLER_CACHE_DIR`` names one, and on the
     card build and load both kernel libraries, so that no job pays
     ``nvcc``. A kernel that fails to build is an error, not a degrade.
     Returns the device."""
-    t0 = time.perf_counter()
+    device_mod.start_probe(Path(root) / ".cache", device)
     dev = device_mod.resolve_device(device)
     from ..utils import cache as warm_cache
     if warm_cache.shared_cache_dir() is None:
@@ -484,7 +487,6 @@ def warm_process(root, device=None):
         _build.build()
         sortnet._lib()
         dotplot_grid._lib()
-        device_mod.note_attach_seconds(time.perf_counter() - t0)
     return dev
 
 

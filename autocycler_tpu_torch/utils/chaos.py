@@ -151,6 +151,13 @@ def _repo_root() -> str:
     return str(Path(__file__).resolve().parents[2])
 
 
+def crash_marker(stderr: Optional[str], point: str) -> Optional[str]:
+    """The line of ``stderr`` that names the crash at ``point``, or None."""
+    return next((line for line in (stderr or "").splitlines()
+                 if line.startswith(f"autocycler crash injection: {point}")),
+                None)
+
+
 def chaos_cycle(asm_parent, work_dir, point: str, kmer: int = 31,
                 oracle: Optional[Dict[str, Optional[str]]] = None,
                 timeout: float = 900.0, device: str = "cuda",
@@ -182,9 +189,7 @@ def chaos_cycle(asm_parent, work_dir, point: str, kmer: int = 31,
                          timeout=timeout)
     crash_s = time.perf_counter() - t0
     crash_ok = crashed.returncode == CRASH_EXIT
-    marker = next((line for line in (crashed.stderr or "").splitlines()
-                   if line.startswith(f"autocycler crash injection: "
-                                      f"{point}")), None)
+    marker = crash_marker(crashed.stderr, point)
 
     t1 = time.perf_counter()
     resumed = _run_batch(child, Path(asm_parent), out_dir, kmer,

@@ -88,6 +88,30 @@ DEFAULTS = {
     "AUTOCYCLER_SKETCH_K": 21,
     # dotplot's font file (unset: the bundled DejaVu Sans)
     "AUTOCYCLER_DOTPLOT_FONT": None,
+    # the profiler knobs (utils/timing.py): a torch.profiler Chrome trace
+    # of every stage_timer under AUTOCYCLER_PROFILE_DIR/<stage>/; and under
+    # the directory AUTOCYCLER_XPROF names, one of each of the first
+    # AUTOCYCLER_XPROF_LIMIT launches, DP dispatches and device_work blocks
+    # of a name. The JAX package's docstring calls AUTOCYCLER_XPROF a list
+    # of stage names, but its code (utils/timing.py device_dispatch) reads
+    # it as a directory; the port follows the code.
+    "AUTOCYCLER_PROFILE_DIR": None,
+    "AUTOCYCLER_XPROF": None,
+    "AUTOCYCLER_XPROF_LIMIT": 2,
+    # the device probe (obs/sentinel.py, device.py's gate): its deadline
+    # (unset: 60 s, 20 s for the background probe; <= 0 skips the probe),
+    # how long a persisted negative stays fresh, the retries before a
+    # negative is persisted, the watcher's interval, the probe log's cap,
+    # and the recovery capture's switch and sizes
+    "AUTOCYCLER_PROBE_DEADLINE_S": None,
+    "AUTOCYCLER_PROBE_NEG_TTL_S": 300.0,
+    "AUTOCYCLER_PROBE_RETRIES": 1,
+    "AUTOCYCLER_PROBE_RETRY_BACKOFF_S": 2.0,
+    "AUTOCYCLER_PROBE_WATCH": None,
+    "AUTOCYCLER_PROBE_LOG_MAX": 500,
+    "AUTOCYCLER_RECOVERY_CAPTURE": True,
+    "AUTOCYCLER_RECOVERY_DOTPLOT_N": 65536,
+    "AUTOCYCLER_RECOVERY_GROUPING_MBP": 2.0,
 }
 
 

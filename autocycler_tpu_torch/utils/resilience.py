@@ -313,8 +313,12 @@ _crash_spec_cache: Optional[Tuple[str, Dict[str, int]]] = None
 
 
 def _crash_exit(point: str, key: str = "") -> None:
+    """Write the crash marker on a line of its own and die. The marker
+    starts with a newline: another thread's ``print`` writes its text and
+    its newline in two calls, and a marker written between them would
+    otherwise end that line instead of starting its own."""
     suffix = f" ({key})" if key else ""
-    sys.stderr.write(f"autocycler crash injection: {point}{suffix}\n")
+    sys.stderr.write(f"\nautocycler crash injection: {point}{suffix}\n")
     sys.stderr.flush()
     _exit(CRASH_EXIT)
 

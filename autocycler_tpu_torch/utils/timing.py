@@ -14,8 +14,22 @@ its wall time includes that work.
 
 It names the device families, the JAX package's, that
 ``device.fold_records`` writes (seconds, dispatches, the per-dispatch and
-per-kernel histograms), and counts device-path failures
+per-kernel histograms, and the useful flops and bytes a dispatch site
+declares, by kernel and phase, beside the seconds they divide), reads them
+back by kernel (:func:`device_kernel_snapshot`, rated by
+``ops.mfu.kernel_rates``), times the waits on the device probe
+(:func:`device_wait`) and counts device-path failures
 (:func:`record_device_failure`).
+
+The two profiler knobs write ``torch.profiler`` Chrome traces:
+``AUTOCYCLER_PROFILE_DIR=<dir>`` one per :func:`stage_timer`, at
+``<dir>/<stage>/trace-<n>.json``; ``AUTOCYCLER_XPROF=<dir>`` one for each
+of the first ``AUTOCYCLER_XPROF_LIMIT`` (2) launches, DP dispatches and
+``device_work`` blocks of each name (:func:`xprof_capture`, which
+``device.py`` opens around them), at ``<dir>/<name>-<n>.json``, linked
+from the block's span as its ``xprof`` attr. torch allows one active
+profiler per process: a capture that would nest in another (or in a
+caller's own ``torch.profiler``) is skipped, and neither knob ever raises.
 
 The device token (:func:`enable_device_token`, which the multi-worker
 serve scheduler turns on) serializes device work through one process-wide
@@ -29,22 +43,27 @@ enqueue. Off (the CLI, and a daemon of one worker) it adds nothing.
 from __future__ import annotations
 
 import contextlib
+import os
+import re
 import threading
 import time
 from typing import Callable, Dict, Optional
 
 from ..obs import metrics_registry, trace
 from . import log
-from .env import env_bool
+from .env import env_bool, env_int, env_str
 from .misc import format_duration
 
 # metric names, the JAX package's
 DEVICE_SECONDS = "autocycler_device_seconds_total"
+DEVICE_WAIT = "autocycler_device_wait_seconds_total"
 DEVICE_DISPATCHES = "autocycler_device_dispatches_total"
 DEVICE_FAILURES = "autocycler_device_failures_total"
 DEVICE_FAILURE_LAST = "autocycler_device_failure_last"
 DEVICE_DISPATCH_HIST = "autocycler_device_dispatch_seconds"
 DEVICE_KERNEL_HIST = "autocycler_device_kernel_seconds"
+DEVICE_KERNEL_FLOPS = "autocycler_device_kernel_flops_total"
+DEVICE_KERNEL_BYTES = "autocycler_device_kernel_bytes_total"
 STAGE_SECONDS = "autocycler_stage_seconds_total"
 STAGE_LATENCY_HIST = "autocycler_stage_latency_seconds"
 SUBSTAGE_SECONDS = "autocycler_substage_seconds_total"
@@ -118,6 +137,158 @@ def token_wait_seconds() -> float:
         DEVICE_TOKEN_WAIT, "kernel").values())
 
 
+def device_kernel_snapshot() -> dict:
+    """Per-name dispatch accounting from the registry (what
+    ``device.fold_records`` folded): ``{kernel: {phase: {count, total_s,
+    mean_s, min_s, max_s, flops?, bytes?}}}``, phase "first" (the name's
+    first record in the process) or "steady"."""
+    snap = metrics_registry.registry().snapshot()
+    out: dict = {}
+    for entry in snap.get(DEVICE_KERNEL_HIST, {}).get("values", []):
+        labels = entry.get("labels", {})
+        kernel, phase = labels.get("kernel"), labels.get("phase")
+        if not kernel or not phase or not entry.get("count"):
+            continue
+        # the mean clamped to [min, max]: sum / count can fall an ulp
+        # outside them, and rounding would then order them wrongly
+        mean = min(max(entry["sum"] / entry["count"], entry["min"]),
+                   entry["max"])
+        out.setdefault(kernel, {})[phase] = {
+            "count": entry["count"],
+            "total_s": round(entry["sum"], 6),
+            "mean_s": round(mean, 6),
+            "min_s": round(entry["min"], 6),
+            "max_s": round(entry["max"], 6),
+        }
+    for name, field in ((DEVICE_KERNEL_FLOPS, "flops"),
+                        (DEVICE_KERNEL_BYTES, "bytes")):
+        for entry in snap.get(name, {}).get("values", []):
+            labels = entry.get("labels", {})
+            kernel, phase = labels.get("kernel"), labels.get("phase")
+            if kernel and phase and kernel in out and phase in out[kernel]:
+                out[kernel][phase][field] = entry["value"]
+    return out
+
+
+def device_seconds() -> float:
+    """Device seconds folded into the registry so far."""
+    return metrics_registry.registry().value(DEVICE_SECONDS)
+
+
+@contextlib.contextmanager
+def device_wait(what: str = ""):
+    """Times one bounded wait on the device probe into :data:`DEVICE_WAIT`,
+    not :data:`DEVICE_SECONDS` (no kernel runs while the process waits to
+    learn whether the card answers), and opens a ``cat="device_wait"``
+    span, so the trace shows where a stage waited on the probe."""
+    start = time.perf_counter()
+    try:
+        with trace.span(what or "probe future", cat="device_wait"):
+            yield
+    finally:
+        metrics_registry.registry().counter_inc(
+            DEVICE_WAIT, time.perf_counter() - start,
+            help="host seconds blocked on the device-attach future "
+                 "(probe wait, excluded from device_seconds)")
+
+
+def device_wait_seconds() -> float:
+    """Host seconds blocked on the device probe so far."""
+    return metrics_registry.registry().value(DEVICE_WAIT)
+
+
+# ---- the profiler knobs ----
+
+# one torch.profiler at a time in this process: a capture that finds it
+# held (or finds a caller's profiler running) is skipped
+_profiler_lock = threading.Lock()
+_xprof_lock = threading.Lock()
+_xprof_counts: Dict[str, int] = {}
+_stage_traces: Dict[str, int] = {}
+
+
+def _safe_name(name: str) -> str:
+    return re.sub(r"[^A-Za-z0-9._-]+", "_", name).strip("_") or "kernel"
+
+
+@contextlib.contextmanager
+def _profiled(path: str):
+    """Runs the block under ``torch.profiler`` (CUDA activities too once
+    CUDA is initialised) and writes its Chrome trace to ``path``; yields
+    whether it did. Skips when another profiler is active; never raises
+    for the profiler's sake."""
+    prof = None
+    if _profiler_lock.acquire(blocking=False):
+        try:
+            import torch
+            from torch.autograd import profiler as autograd_profiler
+            if not autograd_profiler._is_profiler_enabled:
+                activities = [torch.profiler.ProfilerActivity.CPU]
+                if torch.cuda.is_initialized():
+                    activities.append(torch.profiler.ProfilerActivity.CUDA)
+                prof = torch.profiler.profile(activities=activities)
+                prof.__enter__()
+        except Exception:  # noqa: BLE001 — profiling is evidence only
+            prof = None
+        if prof is None:
+            _profiler_lock.release()
+    try:
+        yield prof is not None
+    finally:
+        if prof is not None:
+            try:
+                import torch
+                if torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
+                prof.__exit__(None, None, None)
+                os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+                prof.export_chrome_trace(path)
+            except Exception:  # noqa: BLE001
+                pass
+            finally:
+                _profiler_lock.release()
+
+
+@contextlib.contextmanager
+def xprof_capture(name: str):
+    """With ``AUTOCYCLER_XPROF=<dir>``, captures one of the first
+    ``AUTOCYCLER_XPROF_LIMIT`` blocks of ``name`` (the count is taken
+    whether or not the profiler was free) and yields its trace path, else
+    None. The caller links the path from the block's span."""
+    xprof_dir = (env_str("AUTOCYCLER_XPROF") or "").strip()
+    if not xprof_dir:
+        yield None
+        return
+    limit = env_int("AUTOCYCLER_XPROF_LIMIT")
+    with _xprof_lock:
+        n = _xprof_counts.get(name, 0)
+        if n >= limit:
+            n = None
+        else:
+            _xprof_counts[name] = n + 1
+    if n is None:
+        yield None
+        return
+    path = os.path.join(xprof_dir, f"{_safe_name(name)}-{n}.json")
+    with _profiled(path) as active:
+        yield path if active else None
+
+
+@contextlib.contextmanager
+def _stage_profile(name: str):
+    """With ``AUTOCYCLER_PROFILE_DIR=<dir>``, the stage ``name`` under the
+    profiler, its trace at ``<dir>/<name>/trace-<n>.json``."""
+    profile_dir = (env_str("AUTOCYCLER_PROFILE_DIR") or "").strip()
+    if not profile_dir:
+        yield
+        return
+    with _xprof_lock:
+        n = _stage_traces.get(name, 0)
+        _stage_traces[name] = n + 1
+    with _profiled(os.path.join(profile_dir, name, f"trace-{n}.json")):
+        yield
+
+
 @contextlib.contextmanager
 def substage(name: str):
     """Times one substage; several entries of one name add up. Thread-safe:
@@ -158,11 +329,12 @@ def stage_seconds() -> Dict[str, float]:
 @contextlib.contextmanager
 def stage_timer(name: str):
     """Times one pipeline stage; with AUTOCYCLER_TIMINGS set, prints it and
-    the substages inside it as ``[timing] <stage>: H:MM:SS.micros`` lines."""
+    the substages inside it as ``[timing] <stage>: H:MM:SS.micros`` lines;
+    with AUTOCYCLER_PROFILE_DIR set, profiles it."""
     before = substage_snapshot()
     start = time.perf_counter()
     try:
-        with trace.span(name, cat="stage"):
+        with _stage_profile(name), trace.span(name, cat="stage"):
             yield
     finally:
         elapsed = time.perf_counter() - start

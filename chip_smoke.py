@@ -2,6 +2,10 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --serve-costs    # only the daemon's cost A/B
+    python3 chip_smoke.py --doctor         # only [build] and [doctor]
+    python3 chip_smoke.py --pipeline-costs DIR   # the fresh-process CLI
+                                           # pipeline, DIR's checkout
+                                           # against this one
 
 Phases (any failure exits non-zero, and the result lines are not printed):
 
@@ -26,7 +30,7 @@ Phases (any failure exits non-zero, and the result lines are not printed):
              for byte; then cluster (2 QC-pass clusters), the plasmid
              cluster's dotplot in auto and in device grid mode (identical
              PNGs), the chromosome cluster's dotplot (24 x 6 Mbp, 576
-             pairs; cut to its first 8 contigs, 64 pairs, from a FASTA)
+             pairs; cut to its first 4 contigs, 16 pairs, from a FASTA)
              in auto mode, and trim, resolve and combine: a
              consensus of 2 circular records equal to the generator's
              replicons up to rotation and strand. Then the overlap
@@ -36,8 +40,9 @@ Phases (any failure exits non-zero, and the result lines are not printed):
              end, through compress, cluster, trim (whose overlap DP must
              run on the card and cut every contig back to its replicon's
              length), resolve and combine (the same consensus); its
-             compress (streamed, at half the headline's assemblies) and its
-             chromosome trim run once more under the profiler. Each
+             chromosome trim runs once more under the profiler (the
+             profiled compress and device-grid dotplot were cut in depth
+             to pay for [doctor]). Each
              path's kernels must have been launched in it. Two small
              inputs (start-end overlaps; a hairpin at both ends) also go
              through compress, cluster, dotplot, trim, resolve and combine
@@ -48,6 +53,28 @@ Phases (any failure exits non-zero, and the result lines are not printed):
              "Device vs host" line must read the run's dispatches, and its
              metrics dump's device seconds the summed CUDA-event ms of its
              launches, DP dispatches and device_work blocks (within 1 %).
+   doctor  — the device forensics: `doctor --probe --json` in a process
+             of its own (kind ok, the card's name, capability (9, 0)); the
+             probe child swapped for a stub that sleeps past a 3 s deadline
+             (timeout, the child and a helper it started killed, its stderr
+             tail kept); a compress in a fresh process against that stub
+             (exit 1 with `Error:` naming the probe and doctor, no CUDA
+             call, device_probe.json written), another (exit 1 in under a
+             second from it), `doctor --json` (the negative cache fresh);
+             then in this process the gate refusing the stub and a healthy
+             probe's false -> true transition (the negative cache deleted,
+             one recovery counted, the recovery capture on the card: the
+             word compare at 65,536^2 and the grouping of 2 Mbp, exact
+             against its plain version); one fresh-process trim and resolve
+             of [main]'s plasmid cluster, traced (the probe's resolve, wait
+             and overlap seconds from the ledger); ops.mfu.kernel_rates of
+             [main]'s compress and cluster (each declared dispatch between 0
+             and 100 % of its peak); and the small compress under
+             AUTOCYCLER_PROFILE_DIR and under AUTOCYCLER_XPROF (Chrome
+             traces with CUDA kernel events, the grouping's own kernels in
+             its 2 captures of 3 launches, every span's link a file).
+             (`--doctor` runs [build], a small compress and cluster and
+             this phase alone.)
    batch   — `batch` through the CLI on [main]'s headline isolate (its
              assemblies symlinked), 7 of bench.py bench_batch's isolates
              (12 assemblies of a 50 kb chromosome + 5 kb plasmid, seeds
@@ -72,7 +99,8 @@ Phases (any failure exits non-zero, and the result lines are not printed):
              armed (it dies with exit 43 and the marker inside the stream's
              pass 1), then --resume in a second child (exit 0, the dead
              spill dir swept, no tmp file or .stream/run-* left, the three
-             final files equal to [batch]'s serial run's).
+             final files equal to [batch]'s serial run's). Each child
+             consults the device probe, as every fresh process does.
    serve   — the daemon on the card in this process, over loopback HTTP:
              ServeHandle(root, workers=2) with its process warmed as
              `serve` warms it (a shared .cache under its root, both kernel
@@ -113,8 +141,9 @@ Phases (any failure exits non-zero, and the result lines are not printed):
              GFA's unitig count, length and N50, its stage spans the stage
              timers (5 %), and the top-level span carries the device bytes;
              the warm compress's device peak must be below the cold one's.
-             (At the end of [sketch], its auto cluster once more: every
-             sketch from the cache, the cold run's files.)
+             Then, after [sketch], its auto cluster once more on the
+             plasmid-rich directory: every contig's sketch from the cache
+             the cold run filled (264 hits, no miss), the cold run's files.
    tools   — the small input's host commands through the CLI: subsample
              (StdRng shuffle), table, gfa2fasta, clean --remove and
              --cache, helper flye with a stub on PATH and helper raven
@@ -124,7 +153,8 @@ Phases (any failure exits non-zero, and the result lines are not printed):
              handing their graphs over in memory (cluster(collect_handoff=
              True), trim and resolve with preloaded=...), the collector off:
              every file must equal the CLI run's; each stage's wall, stage
-             and substage seconds and the counters are printed.
+             and substage seconds and the counters are printed. (The file
+             flow in one process was cut in depth to pay for [doctor].)
    stream  — the headline compress once more through the CLI with
              AUTOCYCLER_STREAM_KMERS=off (the in-memory grouping): its GFA
              and YAML must equal [main]'s; both runs' walls,
@@ -136,12 +166,15 @@ Phases (any failure exits non-zero, and the result lines are not printed):
              13): compress (streamed; the in-memory compress was cut in
              depth to pay for [chaos]), then cluster with the default knob
              (sketch
-             distances, hashed on the card), with verify and with exact
-             distances (verify with the cache off, so that it sketches
-             cold), 11 QC-pass clusters and one partition in all three;
+             distances, hashed on the card) and with verify (the cache
+             off, so that it sketches cold; it computes the exact
+             distances too), 11 QC-pass clusters and one partition in
+             both (the cluster with exact distances alone was cut in depth
+             to pay for [doctor]);
              then the sketch intersection grid on the card against its
              host version, and 8 contigs' sketches on the card against the
-             CPU's, exact.
+             CPU's, exact; then the auto cluster once more, warm (see
+             [warm]).
 4. grid    — the match-grid throughput entry (benchmark_gcells) at 524,288^2
              and k=32 for the word kernel and both product kernels; at equal
              tiles the three grids must equal one another and the plain
@@ -167,6 +200,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import re
 import shutil
 import os
 import subprocess
@@ -179,14 +213,12 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
-BF16_FLOPS = 989e12                # H100 SXM tensor cores, dense (data sheet)
-INT8_OPS = 1979e12
-# Instructions on the CUDA cores: 128 lanes per SM a clock (4 schedulers x 32
-# lanes), x 132 SMs x 1.98 GHz boost = 33.5e12/s, the data sheet's float32
-# rate (67 TFLOP/s) counted as one instruction per FMA. No integer or logic
-# instruction issues faster.
-INT_OPS = 132 * 128 * 1.98e9
+sys.path.insert(0, str(REPO))
+# the H100 SXM's peaks (autocycler_tpu_torch/ops/mfu.py, from the data
+# sheet): device memory, tensor cores (dense) and the CUDA cores' issue rate
+from autocycler_tpu_torch.ops.mfu import (  # noqa: E402
+    H100_BF16_FLOPS as BF16_FLOPS, H100_HBM_BYTES as HBM_BYTES_PER_S,
+    H100_INT8_OPS as INT8_OPS, H100_INT_OPS as INT_OPS, grouping_bytes)
 GRID_N = 524_288                   # the match-grid entry's own sizes
 GRID_K = 32
 HEADLINE = dict(n_assemblies=24, chromosome_len=6_000_000,
@@ -203,9 +235,10 @@ OVERLAP_SEED = 11
 # the card) fit the time the script has run in: the overlap configuration
 # takes the first 12 of the headline's 24 assemblies (12 trim jobs a
 # cluster; the overlap DP's rows stay at the K = 5000 cap), and the
-# chromosome-cluster dotplot the first 8 of its 24 contigs (64 pairs).
+# chromosome-cluster dotplot the first 4 of its 24 contigs (16 pairs; 8 of
+# them until [doctor] needed the time).
 OVERLAP_ASSEMBLIES = 12
-CHROMOSOME_DOTPLOT_CONTIGS = 8
+CHROMOSOME_DOTPLOT_CONTIGS = 4
 # the plasmid-rich configuration: a chromosome and ten plasmids, 24 times,
 # 264 contigs, so that cluster's default (auto) sketches. No source gives
 # these lengths: they span the plasmid sizes that multi-plasmid
@@ -806,6 +839,10 @@ def phase_main(work: Path):
     if not sum(r["dp"]["resolve_medoid_dp"]["dispatches"] for r in runs):
         raise AssertionError("[main] headline resolve never dispatched its "
                              "medoid DP")
+    for r in runs:
+        for record in r["dp"]["resolve_medoid_dp"]["each"]:
+            log(f"[main] resolve_medoid_dp {record.get('ms')} ms, its bound "
+                f"{json.dumps(medoid_dp_bound(record))}")
     overlap_configuration(work, replicons)
     return ({"compress": launches, **paths}, compressed, plasmid_pair,
             dotplot_groupings)
@@ -977,9 +1014,6 @@ def overlap_configuration(work: Path, replicons) -> None:
     out = work / "overlap_out"
     run_cli("overlap compress", ["compress", "-i", asm, "-a", out,
                                  "--kmer", "51"])
-    # the streamed compress once more under the profiler, at half the
-    # headline's assemblies
-    profile_compress(asm, work / "overlap_profiled", out)
     run_cli("overlap cluster", ["cluster", "-a", out])
     clusters = sorted((out / "clustering" / "qc_pass").iterdir())
     if len(clusters) != 2:
@@ -1011,6 +1045,8 @@ def overlap_configuration(work: Path, replicons) -> None:
 
 # (phase, label, wall seconds) of every run_cli call, in order
 CLI_WALLS = []
+# (phase, label) -> ops.mfu.kernel_rates of the call's declared dispatches
+KERNEL_RATES = {}
 
 
 def run_cli(label: str, argv, phase: str = "main", expect_rc: int = 0) -> dict:
@@ -1025,6 +1061,7 @@ def run_cli(label: str, argv, phase: str = "main", expect_rc: int = 0) -> dict:
     compress/build_graph's own peak device memory."""
     from autocycler_tpu_torch import cli, device
     from autocycler_tpu_torch.commands import compress
+    from autocycler_tpu_torch.ops import mfu
     from autocycler_tpu_torch.stream import spill
     from autocycler_tpu_torch.utils import resilience, timing
 
@@ -1079,12 +1116,15 @@ def run_cli(label: str, argv, phase: str = "main", expect_rc: int = 0) -> dict:
         for n, d in dps.items() if d["dispatches"])
     stages = timing.stage_seconds()
     substages = timing.substage_snapshot()
+    rates = mfu.kernel_rates(timing.device_kernel_snapshot())
+    KERNEL_RATES[(phase, label)] = rates
     CLI_WALLS.append((phase, label, wall))
     log(f"[{phase}] {label}: wall {wall} s, launches {launches}, kernel time "
         f"(ms, CUDA events) {json.dumps(kernel_ms)}, stages (s) "
         f"{json.dumps(stages)}, substages (s) "
         f"{json.dumps(substages)}{dp_text}, memory {json.dumps(peaks)}")
     return {"launches": launches, "kernel_ms": kernel_ms, "dp": dps,
+            "rates": rates,
             "work": work_blocks, "stages": stages, "substages": substages,
             "wall_s": wall, "stream": dict(spill.last_run), **peaks}
 
@@ -1182,11 +1222,6 @@ def cluster_and_dotplot(work: Path, out: Path):
         raise AssertionError("[main] auto and device-grid PNGs differ")
     log(f"[main] plasmid cluster dotplot: auto and device-grid PNGs "
         f"byte-identical ({pngs['auto'].stat().st_size} bytes)")
-    profile_cli("plasmid cluster dotplot, --grid-mode device",
-                ["dotplot", "-i", plasmid, "-o", work / "profiled.png",
-                 "--grid-mode", "device"])
-    if (work / "profiled.png").read_bytes() != pngs["device"].read_bytes():
-        raise AssertionError("[profile] the profiled dotplot differs")
 
     # every pair is a 6 Mbp x 6 Mbp sort-join; the device grid would be
     # 3.6e13 cells a pair, past MAX_DEVICE_CELLS, so auto mode only. Cut in
@@ -1247,15 +1282,6 @@ def profile_cli(label: str, argv) -> None:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     for name, us in top:
         log(f"[profile]   {us / 1e6} s  {name[:100]}")
-
-
-def profile_compress(asm: Path, out: Path, expected: Path) -> None:
-    """The profiled compress must write the same bytes as the counted one."""
-    profile_cli("overlap compress", ["compress", "-i", asm, "-a", out,
-                                     "--kmer", "51"])
-    if not _same_files(out, expected):
-        raise AssertionError("[profile] profiled compress differs from the "
-                             "counted one")
 
 
 def _pipeline_step(record: dict, name: str, fn, *args, **kwargs):
@@ -1334,13 +1360,11 @@ def phase_handoff(work: Path) -> None:
     """The headline in one process on the card, as bench.py's headline runs
     the JAX package: compress (k=51) -> cluster(collect_handoff=True) ->
     trim(preloaded=...) -> resolve(preloaded=...) for each QC-pass cluster
-    -> combine, on [main]'s inputs into a fresh directory. Then, on a copy
-    of its compressed graph, the same stages in one process reading and
-    writing the files between them as the CLI does, so that the hand-over's
-    gain stands apart from that of running in one process with the
-    collector off. Every file either writes must equal the CLI run's in
-    [main]. The compress streams, as in [main]; every grouping it launches
-    is kept for [timing] and returned."""
+    -> combine, on [main]'s inputs into a fresh directory. Every file it
+    writes must equal the CLI run's in [main]. (The same stages reading and
+    writing the files in one process were cut in depth to pay for
+    [doctor].) The compress streams, as in [main]; every grouping it
+    launches is kept for [timing] and returned."""
     from autocycler_tpu_torch.commands.cluster import cluster
     from autocycler_tpu_torch.commands.combine import combine
     from autocycler_tpu_torch.commands.compress import compress
@@ -1348,7 +1372,6 @@ def phase_handoff(work: Path) -> None:
     from autocycler_tpu_torch.commands.trim import trim
 
     asm, out = work / "headline" / "assemblies", work / "handoff"
-    files = work / "handoff_files"
 
     def handed_over(steps):
         # the CLI's default --threads, so that the plan, and so the
@@ -1365,15 +1388,6 @@ def phase_handoff(work: Path) -> None:
         _pipeline_step(steps, "combine", combine, out,
                        [c / "5_final.gfa" for c in clusters])
 
-    def from_files(steps):
-        _pipeline_step(steps, "cluster", cluster, files)
-        clusters = sorted((files / "clustering" / "qc_pass").iterdir())
-        for c in clusters:
-            _pipeline_step(steps, "trim", trim, c)
-            _pipeline_step(steps, "resolve", resolve, c)
-        _pipeline_step(steps, "combine", combine, files,
-                       [c / "5_final.gfa" for c in clusters])
-
     with groupings_launched() as compress_groupings:
         run = _in_process("hand-over", handed_over)
     stream = run["stream"]
@@ -1385,15 +1399,8 @@ def phase_handoff(work: Path) -> None:
     if not _same_files(work / "out", out):
         raise AssertionError("[handoff] the in-process hand-over's files "
                              "differ from the CLI run's in [main]")
-    files.mkdir()
-    for name in ("input_assemblies.gfa", "input_assemblies.yaml"):
-        shutil.copyfile(out / name, files / name)
-    _in_process("files", from_files)
-    if not _same_files(work / "out", files):
-        raise AssertionError("[handoff] the in-process file flow's files "
-                             "differ from the CLI run's in [main]")
-    log("[handoff] the hand-over and the in-process file flow write every "
-        "file the CLI run in [main] does, byte for byte")
+    log("[handoff] the hand-over writes every file the CLI run in [main] "
+        "does, byte for byte")
     return compress_groupings, stream["bins"]
 
 
@@ -1783,7 +1790,7 @@ def _serve_jobs(handle, headline: Path, second: Path, parent: Path, small,
     _, health = request_json(handle.endpoint, "GET", "/healthz")
     if health["status"] != "ok" or health["workers"] != SERVE_WORKERS \
             or health["probe"]["state"] != "attached" \
-            or health["probe"]["kind"] != "cuda":
+            or health["probe"]["kind"] != "ok":
         raise AssertionError(f"[serve] /healthz {health}")
 
     torch.cuda.reset_peak_memory_stats()
@@ -2516,12 +2523,16 @@ def phase_sketch(work: Path) -> None:
     """The plasmid-rich configuration (264 contigs): compress (287 M
     windows, so streamed), then cluster through the CLI with the default
     knob (auto, so
-    sketch distances, hashed on the card), with verify, and with exact
-    distances: 11 QC-pass clusters each time and the same partition. The
+    sketch distances, hashed on the card) and with verify (which computes
+    the exact distances too): 11 QC-pass clusters each time and the same
+    partition. (The cluster with exact distances alone was cut in depth to
+    pay for [doctor]: verify's exact product and [main]'s cluster run that
+    path.) The
     sketch runs' sketching seconds, their grid's CUDA-event ms and verify's
     record are read from inside the CLI calls; each grid must equal
     sketch_intersections_host on its sketches, and 8 contigs' sketches on
-    the card those on the CPU."""
+    the card those on the CPU. Last, the auto cluster warm
+    (:func:`warm_sketch_cluster`)."""
     from autocycler_tpu_torch.commands import cluster as cluster_mod
     from autocycler_tpu_torch.ops import sketch
 
@@ -2546,7 +2557,7 @@ def phase_sketch(work: Path) -> None:
                           lambda a, r: (a[0], r)) as grids, \
                 _recorded(cluster_mod, "compute_distances",
                           lambda a, r: r[1]) as records:
-            for mode in ("auto", "verify", "exact"):
+            for mode in ("auto", "verify"):
                 if mode != "auto":
                     os.environ["AUTOCYCLER_SKETCH_DISTANCE"] = mode
                     # verify sketches cold: it reads none of the sketches
@@ -2559,7 +2570,7 @@ def phase_sketch(work: Path) -> None:
                 partitions[mode] = _tsv_partition(out / "clustering")
                 passing = len(list((out / "clustering" / "qc_pass").iterdir()))
                 grid = runs[mode]["dp"]["cluster_sketch_grid"]
-                if passing != 11 or grid["dispatches"] != (mode != "exact"):
+                if passing != 11 or grid["dispatches"] != 1:
                     raise AssertionError(
                         f"[sketch] cluster {mode}: {passing} QC-pass clusters "
                         f"(expected 11), {grid['dispatches']} sketch grid "
@@ -2570,10 +2581,10 @@ def phase_sketch(work: Path) -> None:
         if saved is not None:
             os.environ["AUTOCYCLER_SKETCH_DISTANCE"] = saved
     if len(partitions["auto"]) != 264 or \
-            not partitions["auto"] == partitions["verify"] == partitions["exact"]:
+            partitions["auto"] != partitions["verify"]:
         raise AssertionError("[sketch] the sketch clustering's partition "
                              "differs from the exact distances'")
-    log("[sketch] auto (sketch), verify and exact: 11 QC-pass clusters, "
+    log("[sketch] auto (sketch) and verify: 11 QC-pass clusters, "
         "the same partition of 264 contigs")
 
     (S, inter), _ = grids[0]
@@ -2620,12 +2631,45 @@ def phase_sketch(work: Path) -> None:
                  "bound_ms": max(bound.values()),
                  "bound_by": max(bound, key=bound.get),
                  "plain_host_s": plain_s, "max_abs_err": err},
-        "verify_record": records[1][0]}))
+        "verify_record": records[1][0],
+        "hashing_bound": hashing_bound(total)}))
     log(f"[sketch] sketch_from_codes on the card: "
         f"{sum(secs for _, secs in contig_hashes[:n])} s for {n} contigs "
         "in auto")
     sketches_on_card_and_cpu(asm / "assembly_1.fasta")
     warm_sketch_cluster(out, n, auto_files, runs["auto"], hashing[0][1])
+
+
+def hashing_bound(bases: int) -> dict:
+    """The minimizer hashing's least time over ``bases`` bases
+    (ops/sketch.py sketch_from_codes): 33 int64 operations a position
+    (two rolling base-5 packs, 3 each; two splitmix64 finalisers, 9 each,
+    and their 32-bit shifts; the canonical minimum; the dot mask, 3; a
+    sliding window minimum, 3), 2 instructions each on 32-bit lanes, at
+    the CUDA cores' issue rate; against both code strands read once."""
+    ops_ms = 66 * bases / INT_OPS * 1e3
+    bytes_ms = 2 * bases / HBM_BYTES_PER_S * 1e3
+    return {"ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def medoid_dp_bound(record: dict) -> dict:
+    """The medoid DP's least time for one dispatch (ops/align.py
+    global_alignment_distance_batch): 10 int64 operations a cell (a
+    compare, a max and a select for the mismatch, two adds and a min, the
+    scan's subtract, min and add, the row's select), 2 instructions each
+    on 32-bit lanes, at the CUDA cores' issue rate; against its int64
+    inputs read once (both paths and their weights, the weights' prefix
+    sums, both lengths) and its distances written once."""
+    pairs, rows, cells = record["pairs"], record["rows"], record["cells"]
+    cols = cells // max(pairs * rows, 1)
+    ops_ms = 20 * cells / INT_OPS * 1e3
+    bytes_ms = 8 * pairs * (2 * rows + 3 * cols + 4) / HBM_BYTES_PER_S * 1e3
+    return {"pairs": pairs, "rows": rows, "cols": cols, "cells": cells,
+            "ops_ms": ops_ms, "bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def sketches_on_card_and_cpu(fasta: Path) -> None:
@@ -2853,7 +2897,7 @@ def _sortnet_bound_ms(codes, starts, k: int) -> float:
     ordered = torch.sort(starts.long()).values
     covered = min(len(codes), int(torch.clamp(
         ordered[1:] - ordered[:-1], max=k).sum()) + k)
-    return (covered + 4 * n + 8 * n) / HBM_BYTES_PER_S * 1e3
+    return grouping_bytes(covered, n) / HBM_BYTES_PER_S * 1e3
 
 
 def _once_ms(fn):
@@ -3172,6 +3216,485 @@ def serve_costs_main() -> int:
     return 0
 
 
+# [doctor]: the probe's deadline against the wedged stub, and the stub: a
+# child that starts a helper in its session, says so on stderr and sleeps
+DOCTOR_DEADLINE_S = 3.0
+WEDGED_CHILD = """\
+import os, subprocess, sys, time
+helper = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(120)"])
+sys.stderr.write("probe stub: cuInit stalls (pid %d, helper %d)\\n"
+                 % (os.getpid(), helper.pid))
+sys.stderr.flush()
+time.sleep(120)
+"""
+# a fresh process that swaps the probe child for WEDGED_CHILD, runs one CLI
+# command and says whether it touched CUDA
+FRESH_CLI = """\
+import json, sys, time
+import torch
+from autocycler_tpu_torch import cli
+from autocycler_tpu_torch.obs import sentinel
+sentinel._probe_argv = lambda: [sys.executable, "-c", sys.argv[1]]
+calls = []
+for name in ("is_available", "init", "_lazy_init", "get_device_name",
+             "get_device_properties", "device_count", "set_device"):
+    real = getattr(torch.cuda, name)
+    setattr(torch.cuda, name, lambda *a, _n=name, _r=real, **kw: (
+        calls.append(_n), _r(*a, **kw))[1])
+t0 = time.perf_counter()
+rc = cli.main(sys.argv[2:])
+print("RESULT " + json.dumps({"rc": rc, "seconds": time.perf_counter() - t0,
+                              "cuda_calls": calls,
+                              "initialized": torch.cuda.is_initialized()}))
+"""
+
+
+def _alive(pid: int) -> bool:
+    """Whether ``pid`` runs (a zombie waiting for its reaper does not)."""
+    try:
+        state = Path(f"/proc/{pid}/stat").read_text().split()[2]
+    except OSError:
+        return False
+    return state != "Z"
+
+
+def _fresh_cli(argv, env: dict) -> tuple:
+    """``argv`` through the CLI in a fresh process whose probe child is the
+    wedged stub: (its RESULT record, its stderr)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", FRESH_CLI, WEDGED_CHILD, *map(str, argv)],
+        cwd=REPO, env={**os.environ, **env}, capture_output=True, text=True,
+        timeout=120)
+    line = next((x for x in proc.stdout.splitlines()
+                 if x.startswith("RESULT ")), None)
+    if proc.returncode != 0 or line is None:
+        raise AssertionError(f"[doctor] {argv[0]} in a fresh process: exit "
+                             f"{proc.returncode}\n{proc.stderr[-3000:]}")
+    return json.loads(line[len("RESULT "):]), proc.stderr
+
+
+def _doctor_json(run_dir: Path, *flags) -> dict:
+    """``doctor --json`` (and ``flags``) in a process of its own."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "autocycler_tpu_torch", "doctor", "--json",
+         "-d", str(run_dir), *flags], cwd=REPO, capture_output=True,
+        text=True, timeout=180)
+    if proc.returncode != 0:
+        raise AssertionError(f"[doctor] doctor {flags} exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return json.loads(proc.stdout)
+
+
+def _kernel_events(path: Path) -> list:
+    """The CUDA kernels' names in a Chrome trace (raises if it does not
+    parse)."""
+    events = json.loads(Path(path).read_text())["traceEvents"]
+    return [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+
+
+def doctor_live_probe(work: Path) -> None:
+    """`doctor --probe --json`: one live probe of the card, kind ok."""
+    report = _doctor_json(work / "live", "--probe")
+    last = report["probe_log"]["entries"][-1]
+    if not last.get("attached") or last.get("kind") != "ok" \
+            or last.get("name") != torch.cuda.get_device_name(0) \
+            or last.get("capability") != [9, 0]:
+        raise AssertionError(f"[doctor] live probe: {json.dumps(last)}")
+    log(f"[doctor] doctor --probe --json: attached, kind ok, "
+        f"{last['name']}, capability {last['capability']}, "
+        f"{last['total_memory']} B, the driver's CUDA "
+        f"{last['cuda_version']} (torch's {last['torch_cuda']}), "
+        f"{last['device_count']} card(s), {last['seconds']} s from the "
+        f"child's start; actions {report['actions']}")
+
+
+def doctor_wedged_probe(work: Path, small_asm: Path) -> Path:
+    """The wedged stub: killed at the deadline with its helper, its stderr
+    kept; a fresh-process compress ends with Error: and exit 1 without a
+    CUDA call and persists the negative; the next ends in under a second
+    from it; doctor shows it fresh. Returns the negative cache's dir."""
+    from autocycler_tpu_torch.obs import sentinel
+
+    real_argv = sentinel._probe_argv
+    sentinel._probe_argv = lambda: [sys.executable, "-c", WEDGED_CHILD]
+    try:
+        outcome = sentinel.subprocess_probe(DOCTOR_DEADLINE_S)
+    finally:
+        sentinel._probe_argv = real_argv
+    tail = outcome.get("stderr_tail", "")
+    pids = [int(x) for x in re.findall(r"(?:pid|helper) (\d+)", tail)]
+    time.sleep(0.5)
+    if outcome["kind"] != "timeout" or "cuInit stalls" not in tail \
+            or len(pids) != 2 or any(_alive(pid) for pid in pids):
+        raise AssertionError(f"[doctor] wedged probe: {json.dumps(outcome)}")
+    log(f"[doctor] wedged probe: kind timeout after {outcome['seconds']} s "
+        f"(deadline {DOCTOR_DEADLINE_S} s), the child and its helper "
+        f"{pids} killed with their session, stderr tail kept: "
+        f"{tail.strip()!r}")
+
+    out = work / "wedged"
+    env = {"AUTOCYCLER_PROBE_DEADLINE_S": str(DOCTOR_DEADLINE_S),
+           "AUTOCYCLER_PROBE_RETRIES": "0"}
+    argv = ["compress", "-i", small_asm, "-a", out]
+    first, err = _fresh_cli(argv, env)
+    cache = out / ".cache"
+    if first["rc"] != 1 or first["cuda_calls"] or first["initialized"] \
+            or "Error: the device probe failed (timeout)" not in err \
+            or "autocycler doctor" not in err \
+            or not (cache / "device_probe.json").is_file():
+        raise AssertionError(f"[doctor] wedged compress: {json.dumps(first)}"
+                             f"\n{err[-2000:]}")
+    error_line = next(x for x in err.splitlines() if x.startswith("Error:"))
+    second, err2 = _fresh_cli(argv, env)
+    if second["rc"] != 1 or second["seconds"] >= 1.0 \
+            or "persisted negative probe" not in err2 \
+            or second["cuda_calls"] or second["initialized"]:
+        raise AssertionError(f"[doctor] second compress: "
+                             f"{json.dumps(second)}\n{err2[-2000:]}")
+    report = _doctor_json(cache)
+    neg = report["negative_cache"]
+    if not neg.get("fresh") or neg.get("kind") != "timeout":
+        raise AssertionError(f"[doctor] doctor --json: {json.dumps(neg)}")
+    log(f"[doctor] a fresh-process compress against the wedged stub: exit 1 "
+        f"in {first['seconds']} s with no CUDA call ({error_line!r}); "
+        f"device_probe.json written; the next process: exit 1 in "
+        f"{second['seconds']} s from it ('persisted negative probe'); "
+        f"doctor --json: negative cache fresh, age {neg['age_s']} s of "
+        f"{neg['ttl_s']} s; actions {report['actions']}")
+    return cache
+
+
+def doctor_recovery(work: Path, cache: Path) -> None:
+    """The wedged outcome through this process's gate, then a healthy
+    probe: the false -> true transition deletes the negative cache, counts
+    one recovery and runs the recovery capture on the card."""
+    from autocycler_tpu_torch import device
+    from autocycler_tpu_torch.obs import metrics_registry, sentinel
+    from autocycler_tpu_torch.ops import dotplot_grid, sortnet
+    from autocycler_tpu_torch.utils import AutocyclerError
+
+    sentinel._reset_for_tests()
+    device._probe_reset()
+    # the gate probes (and logs the wedged outcome) only without a fresh
+    # negative to adopt: it writes the one the recovery must delete
+    (cache / "device_probe.json").unlink()
+    device.set_probe_cache_dir(cache)
+    sentinel.set_probe_log_dir(work / "recovery")
+    real_argv = sentinel._probe_argv
+    env = {"AUTOCYCLER_PROBE_DEADLINE_S": str(DOCTOR_DEADLINE_S),
+           "AUTOCYCLER_PROBE_RETRIES": "0"}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    sentinel._probe_argv = lambda: [sys.executable, "-c", WEDGED_CHILD]
+    try:
+        device.resolve_device(None)
+        raise AssertionError("[doctor] the gate passed a wedged probe")
+    except AutocyclerError as e:
+        refused = str(e)
+        wedged_cache = (cache / "device_probe.json").is_file()
+    finally:
+        sentinel._probe_argv = real_argv
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    sentinel.on_recovery(sentinel.recovery_capture)
+    reg = metrics_registry.registry()
+    recoveries = reg.value("autocycler_probe_recoveries_total")
+    names = (sortnet.KERNEL, dotplot_grid.KERNEL_WORDS)
+    before = {n: device.launches[n] for n in names}
+    entry = sentinel.ProbeWatcher(interval=1.0).cycle()
+    capture = json.loads((work / "recovery" /
+                          "recovery_capture.json").read_text())
+    launched = {n: device.launches[n] - before[n] for n in names}
+    dot, grp = capture["dotplot"], capture["grouping"]
+    if not entry.get("attached") or not wedged_cache \
+            or (cache / "device_probe.json").exists() \
+            or reg.value("autocycler_probe_recoveries_total") != \
+            recoveries + 1 \
+            or "gcells_per_s" not in dot or not grp.get("kernel_exact") \
+            or launched != {sortnet.KERNEL: grp["launches"],
+                            dotplot_grid.KERNEL_WORDS: dot["launches"]} \
+            or not all(launched.values()):
+        raise AssertionError(f"[doctor] recovery: {json.dumps(entry)}, "
+                             f"capture {json.dumps(capture)}, launched "
+                             f"{launched}")
+    sentinel.set_probe_log_dir(None)
+    sentinel.clear_recovery_hooks()
+    device._probe_reset()                # the gate again, as a process
+    device.resolve_device(None)          # starts: through a fresh probe
+    if device.probe_report()["kind"] != "ok":
+        raise AssertionError(f"[doctor] the gate after the recovery: "
+                             f"{device.probe_report()}")
+    log(f"[doctor] the gate refused the wedged probe ({refused!r}); a "
+        f"healthy probe then gave false -> true: negative cache deleted, "
+        f"autocycler_probe_recoveries_total {recoveries} -> "
+        f"{recoveries + 1}, recovery capture in {capture['seconds']} s: "
+        f"word compare {dot['grid']} k={dot['k']} {dot['gcells_per_s']} "
+        f"Gcells/s, {dot['tops']} T instructions/s, {dot['pct_peak']} % of "
+        f"the 33.5e12 peak; grouping {grp['windows']} windows k={grp['k']} "
+        f"kernel_s {grp['kernel_s']}, plain_s {grp['plain_s']} (CPU "
+        f"tensors), kernel_exact {grp['kernel_exact']}; launches "
+        f"{launched}")
+
+
+def doctor_probe_cost(work: Path, cluster_dir: Path) -> dict:
+    """One fresh-process CLI trim and resolve of a copy of ``cluster_dir``,
+    traced: the probe's resolve, wait and overlap seconds (the ledger's
+    caches.probe) beside the command's wall."""
+    c = work / "cluster"
+    shutil.copytree(cluster_dir, c)
+    costs = {}
+    for cmd in ("trim", "resolve"):
+        run_dir = work / f"tel_{cmd}"
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "autocycler_tpu_torch", cmd, "-c", str(c)],
+            cwd=REPO, env={**os.environ, "AUTOCYCLER_TRACE_DIR": str(run_dir)},
+            capture_output=True, text=True, timeout=600)
+        process_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"[doctor] fresh-process {cmd}: exit "
+                                 f"{proc.returncode}\n{proc.stderr[-2000:]}")
+        probe = json.loads((run_dir / "ledger.json").read_text())[
+            "caches"]["probe"]
+        overlap, last = probe["overlap"], probe.get("last", {})
+        finish = next(r for r in _trace_records(run_dir)
+                      if r.get("type") == "finish")
+        if overlap["state"] != "attached" or overlap["kind"] != "ok":
+            raise AssertionError(f"[doctor] {cmd}'s probe: "
+                                 f"{json.dumps(probe)}")
+        costs[cmd] = {"run_wall_s": finish["wall"], "process_s": process_s,
+                      **{k: overlap[k] for k in (
+                          "resolve_s", "wait_s", "overlap_saved_s",
+                          "attempts", "deadline_s")},
+                      "child_s": last.get("seconds")}
+    log(f"[doctor] the probe's cost in a fresh-process trim and resolve of "
+        f"{cluster_dir.name} (traced): {json.dumps(costs)}")
+    return costs
+
+
+def doctor_rates() -> None:
+    """ops.mfu.kernel_rates of [main]'s traced compress and its cluster:
+    each declared dispatch's share of its peak, between 0 and 100 %."""
+    for label in ("compress", "cluster"):
+        rates = KERNEL_RATES[("main", label)]
+        declared = {n: r for n, r in rates.items() if "pct_peak" in r}
+        if not declared or not all(0 < r["pct_peak"] <= 100
+                                   for r in declared.values()):
+            raise AssertionError(f"[doctor] {label} rates: "
+                                 f"{json.dumps(rates)}")
+        log(f"[doctor] [main] {label}: kernel_rates of the declared "
+            f"dispatches (a lower bound: CUDA events span host gaps): "
+            f"{json.dumps(declared)}")
+
+
+def _fresh_compress(asm: Path, out: Path, env: dict) -> float:
+    """compress ``asm`` into ``out`` through the CLI in a process of its
+    own with ``env`` set; returns its wall seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "autocycler_tpu_torch", "compress", "-i",
+         str(asm), "-a", str(out)], cwd=REPO, env={**os.environ, **env},
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"[doctor] compress with {env}: exit "
+                             f"{proc.returncode}\n{proc.stderr[-2000:]}")
+    return time.perf_counter() - t0
+
+
+def doctor_profiler_knobs(work: Path, small_asm: Path, walls) -> None:
+    """A small compress under AUTOCYCLER_PROFILE_DIR, another under
+    AUTOCYCLER_XPROF (traced), each in a fresh process: in a process that
+    has run for minutes, torch.profiler's captures lose kernel events (a
+    capture of the adjacency's 11 launches held none after 200 s of
+    work). Every stage trace and capture parses, the stages and captures
+    that ran kernels hold CUDA kernel events, the grouping's captures name
+    the sortnet kernels, each span's xprof link exists, and the grouping's
+    3 launches give the limit's 2 captures."""
+    from autocycler_tpu_torch.ops import sortnet
+
+    stages, xdir, run_dir = work / "profile", work / "xprof", work / "tel_xprof"
+    traces = {p.parent.relative_to(stages).as_posix(): _kernel_events(p)
+              for p in sorted(stages.rglob("*.json"))}
+    for stage in ("compress/load_and_repair", "compress/build_graph"):
+        if not traces.get(stage):
+            raise AssertionError(f"[doctor] stage trace {stage}: no kernel "
+                                 f"events ({sorted(traces)})")
+    captures = {p.name: _kernel_events(p) for p in sorted(xdir.iterdir())}
+    spans = [r for r in _trace_records(run_dir) if r.get("type") == "span"]
+    launches = sum(r.get("name") == sortnet.KERNEL for r in spans)
+    links = [r["attrs"]["xprof"] for r in spans
+             if "xprof" in r.get("attrs", {})]
+    grouping = [n for n in captures if n.startswith(sortnet.KERNEL)]
+    sortnet_names = ("hist0_kernel", "scatter0_kernel", "sort_reg_kernel",
+                     "sort_generic_kernel", "boundary_kernel")
+    own = {k for n in grouping for e in captures[n] for k in sortnet_names
+           if k in e}
+    if launches <= 2 \
+            or sorted(grouping) != [f"{sortnet.KERNEL}-0.json",
+                                    f"{sortnet.KERNEL}-1.json"] \
+            or not all(captures.values()) or not own \
+            or sorted(Path(x).name for x in links) != sorted(captures) \
+            or not all(Path(x).is_file() for x in links):
+        raise AssertionError(f"[doctor] AUTOCYCLER_XPROF: {launches} "
+                             f"grouping launches, captures "
+                             f"{ {n: len(e) for n, e in captures.items()} }, "
+                             f"links {links}")
+    log(f"[doctor] AUTOCYCLER_PROFILE_DIR: "
+        f"{ {s: len(e) for s, e in traces.items()} } kernel events by "
+        f"stage trace; AUTOCYCLER_XPROF: "
+        f"{ {n: len(e) for n, e in captures.items()} } kernel events by "
+        f"capture ({launches} grouping launches, 2 captured), every span's "
+        f"xprof link a file; the grouping's own kernels captured: "
+        f"{sorted(own)}; walls (s, fresh processes beside the live and "
+        f"wedged probes) "
+        f"{json.dumps(walls)}")
+
+
+def phase_doctor(work: Path, cluster_dir: Path, small_asm: Path) -> dict:
+    """[doctor]: the device forensics on the card (see the module's
+    docstring)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    work.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    # the profiler knobs' two fresh compresses run beside the live and
+    # wedged probes; the probe's cost below is read with nothing beside it
+    with ThreadPoolExecutor(2) as pool:
+        knobs = _knob_compresses(work, small_asm, pool)
+        doctor_live_probe(work)
+        cache = doctor_wedged_probe(work, small_asm)
+        walls = {k: f.result() for k, f in knobs.items()}
+    doctor_recovery(work, cache)
+    costs = doctor_probe_cost(work, cluster_dir)
+    doctor_rates()
+    doctor_profiler_knobs(work, small_asm, walls)
+    log(f"[doctor] {time.perf_counter() - t0:.1f} s")
+    return costs
+
+
+def _knob_compresses(work: Path, small_asm: Path, pool) -> dict:
+    """The two compresses of :func:`doctor_profiler_knobs`, started at once
+    on ``pool``: {knob: future of its wall seconds}."""
+    return {"AUTOCYCLER_PROFILE_DIR": pool.submit(
+                _fresh_compress, small_asm, work / "p1",
+                {"AUTOCYCLER_PROFILE_DIR": str(work / "profile")}),
+            "AUTOCYCLER_XPROF": pool.submit(
+                _fresh_compress, small_asm, work / "p2",
+                {"AUTOCYCLER_XPROF": str(work / "xprof"),
+                 "AUTOCYCLER_TRACE_DIR": str(work / "tel_xprof")})}
+
+
+def doctor_main() -> int:
+    """``--doctor``: [build], then the small input through compress and
+    cluster on the card (for [doctor]'s rates and cluster), then [doctor]."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO / "tests"))
+    from synthetic import make_assemblies
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(f"[device] {smi}")
+    with _phase("build"):
+        phase_build()
+    with tempfile.TemporaryDirectory() as td:
+        work = Path(td)
+        asm = make_assemblies(work / "small", n_assemblies=4,
+                              chromosome_len=30_000, plasmid_len=4_000,
+                              n_snps=10, seed=3)
+        run_cli("compress", ["compress", "-i", asm, "-a", work / "out"])
+        run_cli("cluster", ["cluster", "-a", work / "out"])
+        with _phase("doctor"):
+            phase_doctor(work / "doctor", min(
+                (work / "out" / "clustering" / "qc_pass").iterdir(),
+                key=_cluster_median), asm)
+    return 0
+
+
+PIPELINE_ORDER = ("parent", "change", "change", "parent")
+
+
+def _cli_pipeline(tree: Path, asm: Path, out: Path) -> list:
+    """The headline through ``tree``'s CLI one process a step, as a user
+    runs it: compress, cluster, trim and resolve of each QC-pass cluster,
+    combine. Returns [(step, process wall seconds)]."""
+    env = {**os.environ, "PYTHONPATH": str(tree)}
+    steps = []
+
+    def step(name: str, *argv) -> None:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "autocycler_tpu_torch", *map(str, argv)],
+            cwd=tree, env=env, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"[pipeline] {tree.name} {name}: exit "
+                                 f"{proc.returncode}\n{proc.stderr[-2000:]}")
+        steps.append((name, wall))
+
+    step("compress", "compress", "-i", asm, "-a", out)
+    step("cluster", "cluster", "-a", out)
+    clusters = sorted((out / "clustering" / "qc_pass").iterdir())
+    for c in clusters:
+        step(f"trim {c.name}", "trim", "-c", c)
+        step(f"resolve {c.name}", "resolve", "-c", c)
+    step("combine", "combine", "-a", out, "-i",
+         *[c / "5_final.gfa" for c in clusters])
+    return steps
+
+
+def pipeline_costs(parent: Path) -> None:
+    """The device probe's cost where users pay it: the headline through the
+    CLI one process a step (:func:`_cli_pipeline`), from the checkout at
+    ``parent`` (a tree without the probe) and from this one, in the order
+    parent, change, change, parent, each tree's kernels built first. Each
+    run's consensus must equal the others'; each step's process wall and
+    the sum are printed."""
+    sys.path.insert(0, str(REPO / "tests"))
+    from synthetic import make_assemblies_fast
+
+    trees = {"parent": parent.resolve(), "change": REPO}
+    for label, tree in trees.items():
+        subprocess.run([sys.executable, "-c", "from autocycler_tpu_torch.ops "
+                        "import _build; _build.build()"], cwd=tree,
+                       env={**os.environ, "PYTHONPATH": str(tree)},
+                       check=True, timeout=600)
+    with tempfile.TemporaryDirectory() as td:
+        asm = make_assemblies_fast(Path(td) / "headline", **HEADLINE)
+        sums, consensus = {}, set()
+        for i, label in enumerate(PIPELINE_ORDER):
+            out = Path(td) / f"out{i}"
+            steps = _cli_pipeline(trees[label], asm, out)
+            total = sum(wall for _, wall in steps)
+            sums.setdefault(label, []).append(total)
+            consensus.add((out / "consensus_assembly.fasta").read_bytes())
+            log(f"[pipeline] {label} (run {i + 1}): {total} s in "
+                f"{len(steps)} processes: {json.dumps(dict(steps))}")
+    if len(consensus) != 1:
+        raise AssertionError("[pipeline] the consensus differs between runs")
+    log(f"[pipeline] sums (s) {json.dumps(sums)}; the same consensus in "
+        "every run")
+
+
+def pipeline_costs_main() -> int:
+    """``--pipeline-costs DIR``: :func:`pipeline_costs` against DIR."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(f"[device] {smi}")
+    with _phase("pipeline"):
+        pipeline_costs(Path(sys.argv[2]))
+    return 0
+
+
 @contextlib.contextmanager
 def _phase(name: str):
     t0 = time.perf_counter()
@@ -3198,6 +3721,10 @@ def main() -> int:
         with _phase("main"):
             paths, compressed, plasmid_pair, dotplot_groupings = phase_main(
                 Path(td))
+        with _phase("doctor"):
+            phase_doctor(Path(td) / "doctor", min(
+                (Path(td) / "out" / "clustering" / "qc_pass").iterdir(),
+                key=_cluster_median), Path(td) / "small" / "assemblies")
         with _phase("batch"):
             batch_runs = phase_batch(Path(td))
         with _phase("chaos"):
@@ -3232,5 +3759,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(serve_costs_main() if sys.argv[1:] == ["--serve-costs"]
-             else main())
+    sys.exit({"--serve-costs": serve_costs_main,
+              "--doctor": doctor_main,
+              "--pipeline-costs": pipeline_costs_main}.get(
+                  " ".join(sys.argv[1:2]), main)())

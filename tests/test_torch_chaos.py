@@ -11,6 +11,7 @@ as the full batch does (what lets the card's [chaos] phase use
 
 import contextlib
 import io
+import sys
 
 import pytest
 
@@ -139,3 +140,27 @@ def test_a_cuda_child_without_a_card_fails_and_never_moves_to_the_cpu(
     assert not verdict["passed"] and not verdict["crashed"]
     assert "Error: no CUDA device" in verdict["crash_stderr_tail"]
     assert not (tmp_path / "work" / "out-post-stage" / "iso_000").exists()
+
+
+def test_the_crash_marker_starts_its_own_line_after_a_torn_print(
+        monkeypatch):
+    """A print from another thread writes its text and its newline in two
+    calls (the fleet's prefetch thread logs while the main thread spills):
+    a crash between them must still leave the marker on a line of its
+    own, where the harness looks for it."""
+    from autocycler_tpu_torch.utils import chaos, resilience
+
+    class Exited(Exception):
+        pass
+
+    def _exit(code):
+        raise Exited(code)
+
+    err = io.StringIO()
+    monkeypatch.setattr(resilience, "_exit", _exit)
+    monkeypatch.setattr(sys, "stderr", err)
+    err.write("6 sequences loaded from 3 assemblies")   # print's first write
+    with pytest.raises(Exited):
+        resilience._crash_exit("mid-spill-write", "bin-0000.u64")
+    assert chaos.crash_marker(err.getvalue(), "mid-spill-write") == \
+        "autocycler crash injection: mid-spill-write (bin-0000.u64)"

@@ -147,6 +147,7 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     assert {f"obs/{m}.py" for m in ("timeseries", "report", "watch",
                                     "federate", "top")} <= names
     assert "utils/chaos.py" in names
+    assert {"obs/sentinel.py", "commands/doctor.py", "ops/mfu.py"} <= names
     offenders = [str(f.relative_to(REPO)) for f in files
                  if FORBIDDEN_IMPORT.search(f.read_text())]
     assert offenders == []

@@ -374,7 +374,8 @@ def test_ledger_hashes_inputs_stages_versions_env_and_caches(tmp_path,
     assert built["env"]["CUDA_VISIBLE_DEVICES"] == "0"
     assert built["env"]["AUTOCYCLER_SERVE_TOKEN"] == "<redacted>"
     assert "JAX_PLATFORMS" not in built["env"]
-    assert set(built["caches"]) == {"parse", "repair", "compile"}
+    assert set(built["caches"]) == {"parse", "repair", "compile", "probe"}
+    assert {"recoveries", "overlap"} <= set(built["caches"]["probe"])
     assert built["caches"]["compile"]["dir"].endswith(
         "autocycler_tpu_torch/_build")
 

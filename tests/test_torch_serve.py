@@ -393,10 +393,10 @@ def test_metrics_healthz_and_slo_match_jax(inputs, tmp_path, monkeypatch,
     assert set(health["port"]["slo"]) == set(health["jax"]["slo"])
     assert health["port"]["workers"] == 2 and health["port"]["status"] == "ok"
     probe = health["port"]["probe"]
-    # the JAX probe's keys that a report of what the port did can fill
-    assert set(probe) - {"name"} == {"state", "kind", "resolve_s", "wait_s"}
-    assert set(probe) - {"name"} <= set(health["jax"]["probe"])
-    assert probe["kind"] == "cuda" and probe["wait_s"] == 0.0
+    # the device probe's overlap report, the JAX package's keys (and the
+    # card's name once CUDA is attached); a CPU daemon waits on no probe
+    assert set(probe) - {"name"} == set(health["jax"]["probe"])
+    assert probe["wait_s"] == 0.0
 
     from autocycler_tpu.obs.metrics_registry import \
         MetricsRegistry as JaxRegistry

@@ -150,7 +150,9 @@ def test_timeseries_report_and_watch_match_jax_readers(asm, tmp_path,
     series = timeseries.read_timeseries(root / "timeseries.jsonl")
     assert series and series == jax_ts.read_timeseries(
         root / "timeseries.jsonl")
-    assert all(t["probe"]["kind"] == "cuda" and "serve" in t for t in series)
+    from autocycler_tpu.ops.distance import probe_overlap_report
+    assert all(set(t["probe"]) - {"name"} == set(probe_overlap_report())
+               and "serve" in t for t in series)
     assert timeseries.summarize_timeseries(series) == \
         jax_ts.summarize_timeseries(series)
     run_dir = Path(record["run_dir"])
@@ -187,8 +189,8 @@ def test_cli_samples_beside_a_traced_run(asm, tmp_path, monkeypatch, capsys):
     ticks = (tmp_path / "trace" / "timeseries.jsonl").read_text().splitlines()
     assert len(ticks) >= 2 and json.loads(ticks[-1])["tick"] == len(ticks)
     assert (tmp_path / "trace" / "trace.jsonl").is_file()
-    assert cli.NO_RUN_COMMANDS == {"report", "watch", "top", "serve",
-                                   "submit"}
+    assert cli.NO_RUN_COMMANDS == {"report", "doctor", "watch", "top",
+                                   "serve", "submit"}
     capsys.readouterr()
 
 
@@ -223,9 +225,9 @@ def test_report_watch_and_submit_through_the_cli(asm, tmp_path, capsys):
 
 def test_build_info_and_probe_report(monkeypatch):
     """The daemon's build info names the port, torch, CUDA and numpy; the
-    probe report takes the JAX probe's keys that a report of what the port
-    did can fill, and says when CUDA was attached."""
-    from autocycler_tpu.ops.distance import probe_overlap_report
+    probe report is the device probe's overlap report, the JAX package's
+    keys, and names the card once CUDA is attached."""
+    from autocycler_tpu.ops.distance import probe_overlap_report as jax_report
     from autocycler_tpu_torch import device
     from autocycler_tpu_torch.obs import federate, metrics_registry
     info = federate.build_info()
@@ -234,23 +236,22 @@ def test_build_info_and_probe_report(monkeypatch):
     federate.record_build_info()
     assert 'autocycler_build_info{cuda="' in metrics_registry.to_prometheus()
 
-    for key in ("state", "name", "resolve_s"):
-        if key in device._probe:
-            monkeypatch.setitem(device._probe, key, device._probe[key])
-    shared = {"state", "kind", "resolve_s", "wait_s"}
-    assert shared <= set(probe_overlap_report())
-    unstarted = device.probe_report()
-    assert set(unstarted) == shared and unstarted["resolve_s"] is None
-    monkeypatch.setitem(device._probe, "state", "unstarted")
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "get_device_name", lambda i=0: "Card X")
-    assert device.resolve_device(None).type == "cuda"
-    report = device.probe_report()
-    assert report["state"] == "attached" and report["name"] == "Card X"
-    assert report["resolve_s"] >= 0.0 and report["wait_s"] == 0.0
-    assert set(report) == shared | {"name"}
-    device._probe.pop("name", None)
-    monkeypatch.setitem(device._probe, "state", "unstarted")
+    device._probe_reset()
+    try:
+        unstarted = device.probe_report()
+        assert set(unstarted) == set(jax_report())
+        assert unstarted["state"] == "unstarted"
+        assert unstarted["resolve_s"] is None
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+        monkeypatch.setattr(torch.cuda, "get_device_name",
+                            lambda i=0: "Card X")
+        assert device.resolve_device(None).type == "cuda"
+        report = device.probe_report()
+        assert report["state"] == "attached" and report["name"] == "Card X"
+        assert report["resolve_s"] >= 0.0 and report["wait_s"] >= 0.0
+        assert set(report) == set(jax_report()) | {"name"}
+    finally:
+        device._probe_reset()
 
 
 def test_serve_cli_flags_match_jax():
