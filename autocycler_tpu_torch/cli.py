@@ -35,7 +35,7 @@ import sys
 
 from . import __version__
 from .utils import AutocyclerError
-from .utils.env import env_str
+from .utils.knobs import knob_str
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -161,6 +161,31 @@ def build_parser() -> argparse.ArgumentParser:
                    help="failed/hung subprocess retries with exponential "
                         "backoff (default 0)")
     p.add_argument("--args", dest="extra_args", nargs="+", default=[])
+
+    p = sub.add_parser("lint",
+                       help="statically check the port's own invariants "
+                            "(knob registry, lock discipline, purity, "
+                            "reader contracts, metric naming, fault sites)")
+    p.add_argument("paths", nargs="*",
+                   help="files/directories to lint (default: the port's "
+                        "package and chip_smoke.py)")
+    p.add_argument("--json", action="store_true",
+                   help="emit findings as JSON")
+    p.add_argument("--rule", action="append", default=None, metavar="ID",
+                   help="only run this rule id or family prefix "
+                        "(repeatable, e.g. --rule knobs)")
+    p.add_argument("--baseline", default=None, metavar="PATH",
+                   help="baseline file of accepted findings "
+                        "(default: lint_baseline_torch.json at the repo root)")
+    p.add_argument("--write-baseline", default=None, metavar="PATH",
+                   help="accept the current findings: write them as the "
+                        "new baseline and exit 0")
+    p.add_argument("--report", default=None, metavar="PATH",
+                   help="also write a lint_report.json artifact readable "
+                        "by `autocycler report`")
+    p.add_argument("--knobs-md", action="store_true",
+                   help="print the generated AUTOCYCLER_* knob table "
+                        "(markdown) and exit")
 
     p = sub.add_parser("report",
                        help="render a run's telemetry (trace spans, metrics, "
@@ -356,6 +381,12 @@ def dispatch(args) -> int:
                args.threads, args.dir, args.read_type, args.min_depth_abs,
                args.min_depth_rel, args.extra_args, timeout=args.timeout,
                retries=args.retries)
+    elif args.command == "lint":
+        from .commands.lint import lint
+        return lint(paths=args.paths or None, baseline=args.baseline,
+                    rules=args.rule, as_json=args.json,
+                    write_baseline_path=args.write_baseline,
+                    report_path=args.report, knobs_md=args.knobs_md)
     elif args.command == "report":
         from .obs.report import report
         return report(args.run_dir, as_json=args.json, html=args.html,
@@ -413,15 +444,14 @@ GC_DISABLED_COMMANDS = frozenset({
 })
 
 
-# The commands that never own a trace run, the JAX package's list but for
-# lint, not ported yet
+# The commands that never own a trace run, the JAX package's list
 NO_RUN_COMMANDS = frozenset({"report", "doctor", "watch", "top", "serve",
-                             "submit"})
+                             "submit", "lint"})
 # The commands that start no probe sentinel and no device probe (they read
 # state, or are clients), and those that start the probe themselves, once
 # they have pointed its negative cache at their dir: the JAX package's
 NO_PROBE_COMMANDS = frozenset({"report", "doctor", "watch", "top",
-                               "submit"})
+                               "submit", "lint"})
 OWN_PROBE_COMMANDS = frozenset({"compress", "batch", "serve"})
 
 
@@ -440,7 +470,7 @@ def main(argv=None) -> int:
     # starts before the run clock and stops after it, so its thread's start
     # and join stay outside the run's wall
     sampler = None
-    trace_target = (env_str("AUTOCYCLER_TRACE_DIR") or "").strip()
+    trace_target = (knob_str("AUTOCYCLER_TRACE_DIR") or "").strip()
     if may_own_run and trace_target and timeseries.timeseries_enabled():
         sampler = timeseries.TimeseriesSampler(trace_target).start()
     owns_run = may_own_run and trace.maybe_start_run(name=args.command)
@@ -478,7 +508,7 @@ def main(argv=None) -> int:
                 ledger.write_ledger(run_dir, command=args.command)
         if sampler is not None:
             sampler.stop()   # outside the run wall; takes the final tick
-        metrics_path = env_str("AUTOCYCLER_METRICS")
+        metrics_path = knob_str("AUTOCYCLER_METRICS")
         if metrics_path:
             trace.write_metrics_file(metrics_path)
         if gc_disabled:

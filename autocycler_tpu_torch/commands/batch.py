@@ -59,7 +59,7 @@ from ..parallel.mesh import make_mesh
 from ..stream import prepare_stream_root
 from ..utils import AutocyclerError, check_threads, log, quit_with_error
 from ..utils.cache import open_cache
-from ..utils.env import env_int
+from ..utils.knobs import knob_int
 from ..utils.pool import prefetch_iter
 from ..utils.resilience import RunManifest, collect_errors, crash_point
 from ..utils.timing import stage_timer
@@ -409,7 +409,7 @@ def _fleet_batch(jobs: List[IsolateJob], out_parent: Path, k_size: int,
     plan = fleet_mod.plan_fleet(
         {j.name: fleet_mod.isolate_cost(j.asm_dir) for j in fleet_jobs},
         shard_size=n_dev,
-        n_buckets=env_int("AUTOCYCLER_FLEET_BUCKETS"))
+        n_buckets=knob_int("AUTOCYCLER_FLEET_BUCKETS"))
     log.section_header("Fleet plan")
     log.explanation("Isolates are packed into size-bucketed shards; each shard's exact "
                     "membership contraction is ONE device dispatch with the isolate "
@@ -421,7 +421,7 @@ def _fleet_batch(jobs: List[IsolateJob], out_parent: Path, k_size: int,
                 f"({plan.n_buckets} size bucket(s), {n_dev} device(s))")
     log.message()
 
-    prefetch = env_int("AUTOCYCLER_FLEET_PREFETCH")
+    prefetch = knob_int("AUTOCYCLER_FLEET_PREFETCH")
     depth = max(1, int(prefetch)) * plan.shard_size
     order = [by_name[name] for sh in plan.shards for name in sh.names]
 

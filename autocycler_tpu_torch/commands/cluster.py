@@ -36,7 +36,7 @@ from ..ops.sketch import sketch_contig_distances, sketch_params
 from ..utils import (format_float, load_file_lines, log, median, quit_with_error,
                      usize_division_rounded)
 from ..utils.cache import open_cache
-from ..utils.env import env_int, env_str
+from ..utils.knobs import knob_int, knob_str
 from ..utils.timing import stage_timer
 
 
@@ -724,14 +724,14 @@ def resolve_distance_mode(n_contigs: int) -> str:
     """'exact' | 'sketch' | 'verify' from AUTOCYCLER_SKETCH_DISTANCE, as the
     JAX package resolves it: 'auto' (the default) means sketch from
     AUTOCYCLER_SKETCH_MIN_CONTIGS contigs on."""
-    raw = env_str("AUTOCYCLER_SKETCH_DISTANCE").lower()
+    raw = (knob_str("AUTOCYCLER_SKETCH_DISTANCE") or "auto").strip().lower()
     if raw in ("0", "off", "false", "no", "exact"):
         return "exact"
     if raw in ("1", "on", "true", "yes", "sketch"):
         return "sketch"
     if raw == "verify":
         return "verify"
-    threshold = env_int("AUTOCYCLER_SKETCH_MIN_CONTIGS")
+    threshold = knob_int("AUTOCYCLER_SKETCH_MIN_CONTIGS")
     return "sketch" if n_contigs >= threshold else "exact"
 
 

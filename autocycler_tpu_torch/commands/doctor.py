@@ -19,11 +19,7 @@ import time
 from pathlib import Path
 
 from ..obs import sentinel
-from ..utils.env import env_bool, env_float
-
-# the port's lint baseline: none until lint is ported, and never the JAX
-# package's lint_baseline.json
-LINT_BASELINE = None
+from ..utils.knobs import knob_bool, knob_float
 
 
 def negative_cache_state(run_dir: str = ".") -> dict:
@@ -31,7 +27,7 @@ def negative_cache_state(run_dir: str = ".") -> dict:
     ``run_dir`` or ``run_dir/.cache`` (where compress, batch and the daemon
     keep it), with its freshness against the active TTL: whether it still
     stops the next processes from probing."""
-    ttl = env_float("AUTOCYCLER_PROBE_NEG_TTL_S")
+    ttl = knob_float("AUTOCYCLER_PROBE_NEG_TTL_S")
     for cand in (Path(run_dir) / "device_probe.json",
                  Path(run_dir) / ".cache" / "device_probe.json"):
         try:
@@ -121,11 +117,18 @@ def recommended_actions(probe_state: dict, neg_cache: dict, env: dict,
 
 
 def lint_state(run_dir: str = ".") -> dict:
-    """Static-analysis posture: the port's lint baseline (none until lint
-    is ported: ``baseline`` is null) and any ``lint_report.json`` in the
-    run dir. Never raises: doctor must work anywhere."""
-    out: dict = {"baseline": LINT_BASELINE, "baselined": 0, "report": None}
+    """Static-analysis posture: the port's committed lint baseline
+    (``lint_baseline_torch.json``, never the JAX package's
+    ``lint_baseline.json``) and any ``lint_report.json`` in the run dir.
+    Never raises: doctor must work anywhere."""
+    out: dict = {"baseline": None, "baselined": 0, "report": None}
     try:
+        from .lint import default_baseline
+        baseline = default_baseline()
+        if baseline.is_file():
+            data = json.loads(baseline.read_text())
+            out["baseline"] = str(baseline)
+            out["baselined"] = len(data.get("findings") or [])
         report = Path(run_dir) / "lint_report.json"
         if report.is_file():
             data = json.loads(report.read_text())
@@ -177,6 +180,15 @@ def _render_text(report: dict) -> None:
     if env["env"]:
         print("knobs: " + ", ".join(f"{k}={v}" for k, v
                                     in sorted(env["env"].items())))
+    lint = report.get("lint") or {}
+    if lint.get("baseline"):
+        line = (f"lint: baseline present "
+                f"({lint.get('baselined', 0)} accepted finding(s))")
+        rep = lint.get("report")
+        if isinstance(rep, dict):
+            line += (f"; last report: {rep.get('findings')} new across "
+                     f"{rep.get('files')} files")
+        print(line)
 
     ps = report["probe_state"]
     print("\nlast in-process probe")
@@ -246,7 +258,7 @@ def doctor(run_dir: str = ".", as_json: bool = False, watch: bool = False,
     capture armed."""
     sentinel.set_probe_log_dir(run_dir, fallback=True)
     if watch:
-        if env_bool("AUTOCYCLER_RECOVERY_CAPTURE"):
+        if knob_bool("AUTOCYCLER_RECOVERY_CAPTURE"):
             sentinel.on_recovery(sentinel.recovery_capture)
         iv = interval if interval is not None else (
             sentinel.watch_interval() or 30.0)

@@ -32,7 +32,7 @@ from ..ops.encode import encode_both_strands
 from ..ops.kmers import window_gids
 from ..utils import (Spinner, find_all_assemblies, load_fasta, log,
                      quit_with_error)
-from ..utils.env import env_str
+from ..utils.knobs import knob_str
 
 # layout constants (reference dotplot.rs:28-41)
 INITIAL_TOP_LEFT_GAP = 0.1
@@ -339,7 +339,7 @@ def _find_font():
     5. `fc-match` if fontconfig's CLI is available.
     Falls back to PIL's bitmap font with a stderr note (labels then cannot
     scale)."""
-    override = env_str("AUTOCYCLER_DOTPLOT_FONT")
+    override = knob_str("AUTOCYCLER_DOTPLOT_FONT")
     if override:
         if Path(override).is_file():
             return override

@@ -85,7 +85,7 @@ import torch
 
 from .obs import metrics_registry, trace
 from .utils import quit_with_error, timing
-from .utils.env import env_float, env_int
+from .utils.knobs import knob_float, knob_int
 
 # kernel name -> launches since the last reset_counts()
 launches: Dict[str, int] = {"sortnet_pack_rank": 0, "dotplot_match_grid": 0,
@@ -100,7 +100,10 @@ dp_dispatches: Dict[str, List[dict]] = {"trim_overlap_dp": [],
                                         "cluster_sketch_grid": [],
                                         "batch_membership_contraction": [],
                                         "fleet_membership_contraction": [],
-                                        "batch_sketch_step": []}
+                                        "batch_sketch_step": [],
+                                        "k-mer grouping sort (radix-sharded)": [],
+                                        "k-mer grouping sort+stats "
+                                        "(radix-sharded)": []}
 # device_work name -> one record per block since the last reset_counts():
 # on the card its CUDA events, off it its host seconds
 work_blocks: Dict[str, List[dict]] = {}
@@ -168,7 +171,7 @@ def _disk_probe_load() -> Optional[dict]:
     JAX ops/distance.py:96-118."""
     with _PROBE_LOCK:
         cache_dir = _probe_cache_dir
-    ttl = env_float("AUTOCYCLER_PROBE_NEG_TTL_S")
+    ttl = knob_float("AUTOCYCLER_PROBE_NEG_TTL_S")
     if not cache_dir or ttl <= 0:
         return None
     try:
@@ -345,8 +348,8 @@ def _background_deadline() -> float:
 def _probe_retries() -> Tuple[int, float]:
     """(retries, first backoff seconds) of the background probe, spent
     before a negative is persisted."""
-    retries = max(0, env_int("AUTOCYCLER_PROBE_RETRIES"))
-    return retries, max(0.0, env_float("AUTOCYCLER_PROBE_RETRY_BACKOFF_S"))
+    retries = max(0, knob_int("AUTOCYCLER_PROBE_RETRIES"))
+    return retries, max(0.0, knob_float("AUTOCYCLER_PROBE_RETRY_BACKOFF_S"))
 
 
 def _wait_budget(deadline: float) -> float:

@@ -47,7 +47,7 @@ from typing import Dict, List, Optional
 from .. import __version__
 from ..serve.protocol import SERVE_INFO_JSON
 from ..utils import AutocyclerError
-from ..utils.env import env_float, env_int
+from ..utils.knobs import knob_float, knob_int
 from . import metrics_registry
 from .timeseries import _flat_key, snapshot_quantile
 
@@ -73,22 +73,22 @@ _VERDICT_VALUE = {"scale_in": -1, "steady": 0, "scale_out": 1}
 
 def fed_timeout_s() -> float:
     """Seconds one replica probe or scrape may take."""
-    return max(0.05, float(env_float("AUTOCYCLER_FED_TIMEOUT_S")))
+    return max(0.05, float(knob_float("AUTOCYCLER_FED_TIMEOUT_S")))
 
 
 def fed_stale_s() -> float:
-    return max(0.0, float(env_float("AUTOCYCLER_FED_STALE_S")))
+    return max(0.0, float(knob_float("AUTOCYCLER_FED_STALE_S")))
 
 
 def scale_knobs() -> dict:
     return {
-        "out_burn": float(env_float("AUTOCYCLER_SCALE_OUT_BURN")),
-        "out_util": float(env_float("AUTOCYCLER_SCALE_OUT_UTIL")),
-        "out_queue": float(env_float("AUTOCYCLER_SCALE_OUT_QUEUE")),
-        "in_util": float(env_float("AUTOCYCLER_SCALE_IN_UTIL")),
+        "out_burn": float(knob_float("AUTOCYCLER_SCALE_OUT_BURN")),
+        "out_util": float(knob_float("AUTOCYCLER_SCALE_OUT_UTIL")),
+        "out_queue": float(knob_float("AUTOCYCLER_SCALE_OUT_QUEUE")),
+        "in_util": float(knob_float("AUTOCYCLER_SCALE_IN_UTIL")),
         "cooldown_s": max(0.0,
-                          float(env_float("AUTOCYCLER_SCALE_COOLDOWN_S"))),
-        "hysteresis": max(1, int(env_int("AUTOCYCLER_SCALE_HYSTERESIS"))),
+                          float(knob_float("AUTOCYCLER_SCALE_COOLDOWN_S"))),
+        "hysteresis": max(1, int(knob_int("AUTOCYCLER_SCALE_HYSTERESIS"))),
     }
 
 

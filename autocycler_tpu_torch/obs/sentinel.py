@@ -43,7 +43,7 @@ import time
 from pathlib import Path
 from typing import Callable, List, Optional
 
-from ..utils.env import env_bool, env_float, env_int, env_str
+from ..utils.knobs import knob_bool, knob_float, knob_int, knob_str
 
 PROBE_LOG = "probe_log.jsonl"
 RECOVERY_CAPTURE_FILE = "recovery_capture.json"
@@ -288,7 +288,7 @@ def probe_log_path() -> Optional[Path]:
         explicit, fallback = _log_dir, _fallback_dir
     if explicit:
         return Path(explicit) / PROBE_LOG
-    env = (env_str("AUTOCYCLER_TRACE_DIR") or "").strip()
+    env = (knob_str("AUTOCYCLER_TRACE_DIR") or "").strip()
     if env:
         return Path(env) / PROBE_LOG
     if fallback:
@@ -299,7 +299,7 @@ def probe_log_path() -> Optional[Path]:
 def probe_log_max() -> int:
     """The probe log's cap: the newest N entries (AUTOCYCLER_PROBE_LOG_MAX,
     default 500; 0 keeps every entry)."""
-    return max(0, env_int("AUTOCYCLER_PROBE_LOG_MAX"))
+    return max(0, knob_int("AUTOCYCLER_PROBE_LOG_MAX"))
 
 
 def append_probe_log(entry: dict) -> None:
@@ -475,7 +475,7 @@ def recovery_capture(outcome: Optional[dict] = None, out_dir=None) -> dict:
             raise LookupError("no CUDA device")
         from ..ops.dotplot_grid import KERNEL_WORDS, benchmark_gcells
         from ..ops.mfu import vpu_grid_mfu
-        n = env_int("AUTOCYCLER_RECOVERY_DOTPLOT_N")
+        n = knob_int("AUTOCYCLER_RECOVERY_DOTPLOT_N")
         k = 32
         before = device.launches[KERNEL_WORDS]
         _, rate = benchmark_gcells(n_a=n, n_b=n, k=k, repeats=1,
@@ -494,7 +494,7 @@ def recovery_capture(outcome: Optional[dict] = None, out_dir=None) -> dict:
             raise LookupError("no CUDA device")
         from ..ops.kmers import group_windows_full
         from ..ops.sortnet import KERNEL
-        n = int(env_float("AUTOCYCLER_RECOVERY_GROUPING_MBP") * 1e6)
+        n = int(knob_float("AUTOCYCLER_RECOVERY_GROUPING_MBP") * 1e6)
         k = 51
         rng = np.random.default_rng(7)
         codes = rng.integers(1, 5, size=max(n, k + 2)).astype(np.uint8)
@@ -545,7 +545,7 @@ def probe_deadline(background: bool = False) -> float:
     AUTOCYCLER_PROBE_DEADLINE_S when it is set; else 60 s for a foreground
     probe (``doctor --probe``, the watcher, the synchronous gate) and
     :data:`BACKGROUND_PROBE_DEADLINE_S` for the background one."""
-    value = env_float("AUTOCYCLER_PROBE_DEADLINE_S")
+    value = knob_float("AUTOCYCLER_PROBE_DEADLINE_S")
     if value is None:       # unset, or malformed (with a warning)
         return BACKGROUND_PROBE_DEADLINE_S if background else 60.0
     return value
@@ -590,7 +590,7 @@ class ProbeWatcher:
 
 def watch_interval() -> Optional[float]:
     """AUTOCYCLER_PROBE_WATCH in seconds; unset, <= 0 or malformed: off."""
-    interval = env_float("AUTOCYCLER_PROBE_WATCH")
+    interval = knob_float("AUTOCYCLER_PROBE_WATCH")
     if interval is None:
         return None
     return interval if interval > 0 else None
@@ -607,7 +607,7 @@ def maybe_start_watcher() -> Optional[threading.Thread]:
     with _lock:
         if _watcher_thread is not None and _watcher_thread.is_alive():
             return _watcher_thread
-    if env_bool("AUTOCYCLER_RECOVERY_CAPTURE"):
+    if knob_bool("AUTOCYCLER_RECOVERY_CAPTURE"):
         with _lock:
             if recovery_capture not in _hooks:
                 _hooks.append(recovery_capture)

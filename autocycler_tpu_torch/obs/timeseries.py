@@ -48,7 +48,7 @@ from typing import Callable, Dict, List, Optional
 
 from . import metrics_registry
 from .memory import cuda_memory_sample
-from ..utils.env import env_bool, env_float, env_int
+from ..utils.knobs import knob_bool, knob_float, knob_int
 
 TIMESERIES_JSONL = "timeseries.jsonl"
 
@@ -60,16 +60,16 @@ LAST_TICK_EPOCH = "autocycler_timeseries_last_tick_epoch"
 def timeseries_enabled() -> bool:
     """Sampling is on by default; AUTOCYCLER_TIMESERIES=0/false/no/off
     turns it off."""
-    return env_bool("AUTOCYCLER_TIMESERIES")
+    return knob_bool("AUTOCYCLER_TIMESERIES")
 
 
 def sample_interval() -> float:
-    return max(0.05, float(env_float("AUTOCYCLER_TIMESERIES_INTERVAL_S")))
+    return max(0.05, float(knob_float("AUTOCYCLER_TIMESERIES_INTERVAL_S")))
 
 
 def timeseries_max() -> int:
     """Rotation cap: keep only the newest N lines (0 disables rotation)."""
-    return max(0, int(env_int("AUTOCYCLER_TIMESERIES_MAX")))
+    return max(0, int(knob_int("AUTOCYCLER_TIMESERIES_MAX")))
 
 
 # ---- host load ----

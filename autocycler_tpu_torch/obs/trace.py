@@ -42,7 +42,7 @@ import time
 from pathlib import Path
 from typing import List, Optional
 
-from ..utils.env import env_str
+from ..utils.knobs import knob_str
 from . import memory as obs_memory
 from . import metrics_registry
 
@@ -297,7 +297,7 @@ def maybe_start_run(name: str = "run") -> bool:
     """Start a run from ``AUTOCYCLER_TRACE_DIR`` when the variable is set
     and no run is active; returns True when this call started one (and so
     owns the matching :func:`finish_run`)."""
-    target = (env_str("AUTOCYCLER_TRACE_DIR") or "").strip()
+    target = (knob_str("AUTOCYCLER_TRACE_DIR") or "").strip()
     if not target or _run is not None:
         return False
     try:

@@ -25,7 +25,7 @@ import torch
 from ..device import resolve_device
 from ..models import Sequence
 from ..utils import reverse_complement_bytes
-from .kmers import rank_windows, run_starts
+from .kmers import grouping_mode, radix_rank, rank_windows, run_starts
 
 
 def _best_match_rows(rows: np.ndarray) -> bytes:
@@ -47,7 +47,9 @@ def _matches_by_query_grouped(codes, text_off, text_len, h, q_starts,
     The stable order of the grouping already lists the windows of each group
     in window order, and groups in ascending id, so the windows' part of it
     is the stable sort of the windows by group id: no second sort is
-    needed, and the window-sized arrays never leave the device."""
+    needed, and the window-sized arrays never leave the device. Under
+    ``AUTOCYCLER_DEVICE_GROUPING=radix`` the grouping is radix-sharded, as
+    the JAX package's end repair groups under that mode."""
     dev = resolve_device(device)
     win_count = np.asarray(text_len, np.int64) - h + 1
     woff = np.zeros(len(text_len), np.int64)
@@ -59,7 +61,10 @@ def _matches_by_query_grouped(codes, text_off, text_len, h, q_starts,
     all_starts = torch.cat([
         run_starts(text_off, win_count, dev),
         torch.from_numpy(np.asarray(q_starts, np.int64)).to(dev)])
-    order, gid_sorted = rank_windows(codes_d, all_starts, h)
+    if grouping_mode() == "radix":
+        order, gid_sorted = radix_rank(codes_d, all_starts, h)
+    else:
+        order, gid_sorted = rank_windows(codes_d, all_starts, h)
     del all_starts
     order = order.long()
     is_win = order < W

@@ -17,13 +17,15 @@ to int64 once.
 
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass
 from typing import Tuple
 
 import numpy as np
 import torch
 
-from ..device import device_work, resolve_device
+from ..device import device_work, dp_dispatch, resolve_device
+from ..utils.knobs import knob_str
 from ..utils.timing import substage
 from .encode import encode_bytes
 from .sortnet import INT32_MAX, pack_rank
@@ -64,6 +66,186 @@ def segment_stats(order: torch.Tensor, gid_sorted: torch.Tensor):
                            device=order.device).scatter_reduce_(
         0, g, order, "amin")
     return depth, first_occ
+
+
+# ---------------------------------------------------------------------------
+# The radix-sharded grouping (AUTOCYCLER_DEVICE_GROUPING=radix), the JAX
+# package's: a stable partition of the windows into key-aligned buckets of
+# about equal size by their leading base-5 radix, one bucket a row, the rows
+# laid across a mesh of devices; each row is grouped on its device by the
+# partition-sort kernel with its statistics, and the rows' ranks stitch into
+# global lexicographic ranks by adding group offsets, because ascending radix
+# ranges are ascending k-mer ranges.
+# ---------------------------------------------------------------------------
+
+RADIX_SYMS = 6          # leading base-5 radix: 5**6 = 15625 keys
+# the floor of the per-row bucket of the layout: each row holds only about
+# 1/P of the windows
+_RADIX_DEVICE_ROW_FLOOR = 1 << 12
+RADIX_DISPATCH = "k-mer grouping sort (radix-sharded)"
+RADIX_STATS_DISPATCH = "k-mer grouping sort+stats (radix-sharded)"
+# the AUTOCYCLER_DEVICE_GROUPING spellings that keep the one device grouping:
+# unset, the disable spellings, the generic enable spellings and the JAX
+# package's other device modes, whose XLA sorts have no counterpart here
+_KEEP_DEFAULT = ("", "0", "false", "no", "off", "disabled", "1", "true",
+                 "yes", "on", "pallas", "bucketed", "lsd", "direct")
+
+
+def grouping_mode() -> str:
+    """'radix' when ``AUTOCYCLER_DEVICE_GROUPING`` selects the radix-sharded
+    grouping, else 'default' (the partition-sort kernel over all windows);
+    an unrecognised value keeps the default with a note on stderr, as the
+    JAX package's resolution does."""
+    value = (knob_str("AUTOCYCLER_DEVICE_GROUPING") or "").strip().lower()
+    if value == "radix":
+        return "radix"
+    if value not in _KEEP_DEFAULT:
+        print(f"autocycler: unrecognised AUTOCYCLER_DEVICE_GROUPING="
+              f"{value!r}; keeping the device grouping default",
+              file=sys.stderr)
+    return "default"
+
+
+def _bucket_size(n: int, floor: int = 1 << 16) -> int:
+    """The JAX package's padded sizes: powers of 4 from ``floor``."""
+    b = floor
+    while b < n:
+        b <<= 2
+    return b
+
+
+def radix_partition(codes: torch.Tensor, starts: torch.Tensor, k: int,
+                    workers: int, n_parts: int):
+    """The JAX package's ``_radix_partition`` as torch ops on the windows'
+    device: ``(part, offs)``, ``part`` (int64, on the device) a window
+    permutation by ascending radix key in at most ``n_parts`` chunks of
+    about equal size, chunk c owning ``part[offs[c]:offs[c+1]]`` (``offs``
+    host int64, empty chunks dropped). Cuts fall on key boundaries, so equal
+    k-mers never straddle chunks.
+
+    The JAX package key-sorts slabs of the window range concurrently and
+    concatenates, per chunk, each slab's segment in slab order; one stable
+    sort by (chunk, slab, key) gives the same permutation, bit for bit."""
+    n = len(starts)
+    r = min(RADIX_SYMS, k)
+    n_keys = 5 ** r
+    dev = starts.device
+    key = codes[starts].to(torch.int64)
+    for i in range(1, r):
+        key = key * 5 + codes[starts + i]
+    cum_total = torch.cumsum(torch.bincount(key, minlength=n_keys),
+                             0).cpu().numpy()
+    n_parts = max(1, min(int(n_parts), n_keys))
+    targets = (np.arange(1, n_parts) * n) // n_parts
+    cut = np.searchsorted(cum_total, targets, side="left")
+    cut = np.unique(np.append(cut, n_keys - 1))       # key ending each chunk
+    chunk_of_key = np.searchsorted(cut, np.arange(n_keys), side="left")
+    n_slabs = max(1, min(workers, n // (1 << 16) or 1))
+    bounds = np.linspace(0, n, n_slabs + 1).astype(np.int64)
+    slab = torch.bucketize(torch.arange(n, device=dev),
+                           torch.from_numpy(bounds[1:-1]).to(dev),
+                           right=True)
+    chunk = torch.from_numpy(chunk_of_key).to(dev)[key]
+    _, part = torch.sort((chunk * n_slabs + slab) * n_keys + key,
+                         stable=True)
+    ends = cum_total[cut]
+    offs = np.concatenate([[0], ends[np.diff(ends, prepend=0) > 0]])
+    return part, offs.astype(np.int64)
+
+
+def radix_device_layout(codes: torch.Tensor, starts: torch.Tensor, k: int,
+                        n_dev: int, threads=None):
+    """The JAX package's ``_radix_device_layout`` on the windows' device:
+    the partition into ``max(n_dev, 8)`` buckets, stacked to
+    ``starts_mat`` [rows, b] int32 (rows a multiple of ``n_dev``, each
+    row's real windows first, their count in ``n_real``). Returns
+    ``(part, offs, rows, b, cb, starts_mat, n_real)``; ``cb`` is the JAX
+    package's padded codes size, which the kernel does not need."""
+    from ..stream.planner import effective_workers, resolve_threads
+    workers = effective_workers(resolve_threads(threads))
+    with substage("partition"):
+        part, offs = radix_partition(codes, starts, k, workers,
+                                     max(n_dev, 8))
+    C = len(offs) - 1
+    rows = -(-C // n_dev) * n_dev
+    sizes = np.diff(offs)
+    b = _bucket_size(int(sizes.max()) if C else 1,
+                     floor=_RADIX_DEVICE_ROW_FLOOR)
+    cb = _bucket_size(len(codes))
+    starts_mat = torch.zeros((rows, b), dtype=torch.int32,
+                             device=starts.device)
+    n_real = np.zeros(rows, np.int32)
+    for c in range(C):
+        lo, hi = int(offs[c]), int(offs[c + 1])
+        starts_mat[c, :hi - lo] = starts[part[lo:hi]]
+        n_real[c] = hi - lo
+    return part, offs, rows, b, cb, starts_mat, n_real
+
+
+def radix_rank(codes: torch.Tensor, starts: torch.Tensor, k: int,
+               threads=None, devices=None, stats: bool = False):
+    """The radix-sharded grouping of the length-k windows of ``codes`` at
+    ``starts``: ``(order, gid_sorted)``, with ``stats`` also ``(depth,
+    first_occ)``, int32 on the codes' device, equal to :func:`rank_windows`
+    (and :func:`segment_stats`) over all windows.
+
+    The rows lie over ``devices`` (default: every CUDA device, or the CPU
+    device the tensors are on), which may repeat a device; each row's real
+    windows go through :func:`pack_rank` on its device (the kernel on a
+    card), an empty row launches nothing, and the stitch runs where the
+    codes are. The JAX package's fused per-row statistics are
+    :func:`segment_stats` of each row."""
+    from ..parallel.mesh import _device_list, shard_leading_axis
+    home = codes.device
+    if devices is None:
+        devices = _device_list(None, None) if home.type == "cuda" \
+            else [home]
+    devices = [torch.device(d) for d in devices]
+    n = len(starts)
+    part, offs, rows, b, cb, starts_mat, n_real = radix_device_layout(
+        codes, starts, k, len(devices), threads)
+    C = len(offs) - 1
+    per = rows // len(devices)
+    name = RADIX_STATS_DISPATCH if stats else RADIX_DISPATCH
+    results = []
+    with substage("sort"), dp_dispatch(name, home, rows=rows, windows=n,
+                                       devices=len(devices)):
+        codes_on, mat_on = shard_leading_axis(codes, starts_mat,
+                                              devices=devices)
+        del starts_mat
+        for c in range(C):
+            i, local = divmod(c, per)
+            order_c, gid_c = pack_rank(
+                codes_on[i], mat_on[i][local, :int(n_real[c])], k)
+            row = (order_c, gid_c) + (segment_stats(order_c, gid_c)
+                                      if stats else ())
+            results.append(tuple(t.to(home) for t in row))
+        del codes_on, mat_on
+
+    with substage("stitch"):
+        order = torch.empty(n, dtype=torch.int32, device=home)
+        gid_sorted = torch.empty(n, dtype=torch.int32, device=home)
+        depth_parts, first_parts = [], []
+        g_off = 0
+        for c, row in enumerate(results):
+            lo, hi = int(offs[c]), int(offs[c + 1])
+            idx = part[lo:hi]
+            order[lo:hi] = idx[row[0].long()]
+            gid_sorted[lo:hi] = row[1] + g_off
+            g_c = int(row[1][-1]) + 1
+            if stats:
+                depth_parts.append(row[2])
+                # a row's first occurrences are row-local window indices;
+                # the partition keeps original order within equal keys, so
+                # they map to the global ones through idx
+                first_parts.append(idx[row[3].long()].to(torch.int32))
+            g_off += g_c
+    if not stats:
+        return order, gid_sorted
+    empty = torch.zeros(0, dtype=torch.int32, device=home)
+    return (order, gid_sorted,
+            torch.cat(depth_parts) if depth_parts else empty,
+            torch.cat(first_parts) if first_parts else empty)
 
 
 def _upload(codes: np.ndarray, starts: np.ndarray, device):
@@ -229,7 +411,9 @@ def build_kmer_index(sequences, k: int, device=None,
     package's does: ``AUTOCYCLER_STREAM_KMERS`` on, or auto from
     ``AUTOCYCLER_STREAM_AUTO_WINDOWS`` windows. ``threads`` sizes its plan.
     A spill it cannot trust degrades visibly to the in-memory grouping,
-    which gives the same arrays.
+    which gives the same arrays. ``AUTOCYCLER_DEVICE_GROUPING=radix`` runs
+    the in-memory k-mer grouping and the gram grouping radix-sharded
+    (:func:`radix_rank`), as the JAX package's radix mode does.
     """
     from ..stream import (occ_byte_starts, resolve_stream_mode,
                           stream_group_windows_stats)
@@ -265,6 +449,7 @@ def build_kmer_index(sequences, k: int, device=None,
     if S > 1:
         occ_off[1:] = np.cumsum(2 * seq_len)[:-1]
     M = int(2 * seq_len.sum())
+    radix = grouping_mode() == "radix"
     stream_on = bool(M) and k > 1 and resolve_stream_mode(M, k)
 
     # per-sequence cached both-strand encodings, in buf's (forward, reverse)
@@ -318,8 +503,12 @@ def build_kmer_index(sequences, k: int, device=None,
             starts_d = run_starts(
                 np.stack([fwd_off, rev_off], 1).reshape(-1),
                 np.repeat(seq_len, 2), dev)
-            order_d, gid_sorted_d = rank_windows(codes_d, starts_d, k)
-            depth_d, first_occ_d = segment_stats(order_d, gid_sorted_d)
+            if radix:
+                order_d, gid_sorted_d, depth_d, first_occ_d = radix_rank(
+                    codes_d, starts_d, k, threads, stats=True)
+            else:
+                order_d, gid_sorted_d = rank_windows(codes_d, starts_d, k)
+                depth_d, first_occ_d = segment_stats(order_d, gid_sorted_d)
             occ_kid = _to_host(scatter_gid(order_d, gid_sorted_d), np.int32)
             order = _to_host(order_d)
             del order_d, gid_sorted_d
@@ -358,7 +547,11 @@ def build_kmer_index(sequences, k: int, device=None,
     # byte offset, the suffix gram one byte later.
     with substage("gram grouping"):
         gram_starts = torch.cat([rep_byte_d, rep_byte_d + 1])
-        gorder, ggid_sorted = rank_windows(codes_d, gram_starts, k - 1)
+        if radix and k > 1:
+            gorder, ggid_sorted = radix_rank(codes_d, gram_starts, k - 1,
+                                             threads)
+        else:
+            gorder, ggid_sorted = rank_windows(codes_d, gram_starts, k - 1)
         gram_gid = scatter_gid(gorder, ggid_sorted).long()
         G = int(ggid_sorted[-1]) + 1 if len(gram_starts) else 0
         rep_byte = _to_host(rep_byte_d)

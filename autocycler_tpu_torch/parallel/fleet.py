@@ -32,7 +32,7 @@ import torch
 
 from ..device import dp_dispatch, resolve_device
 from ..obs import metrics_registry
-from ..utils.env import env_int, env_str
+from ..utils.knobs import knob_int, knob_str
 from ..utils.resilience import InputError
 from .batch import _check_exact
 from .mesh import place_leading_axis
@@ -55,7 +55,7 @@ def resolve_fleet_mode(cli_value: Optional[str] = None) -> str:
     """The effective fleet mode: the CLI --fleet flag when given, else the
     ``AUTOCYCLER_FLEET_MODE`` knob. Unknown values are an input error (the
     CLI argparse choices catch them first; this guards the knob path)."""
-    mode = (cli_value or env_str("AUTOCYCLER_FLEET_MODE") or "off")
+    mode = (cli_value or knob_str("AUTOCYCLER_FLEET_MODE") or "off")
     mode = mode.strip().lower()
     if mode not in FLEET_MODES:
         raise InputError(f"unknown fleet mode {mode!r} "
@@ -67,7 +67,7 @@ def fleet_devices(device=None) -> int:
     """How many devices the fleet planner shards for:
     ``AUTOCYCLER_FLEET_DEVICES`` when > 0, else one for a run the caller
     put on the CPU, else ``torch.cuda.device_count()``."""
-    forced = env_int("AUTOCYCLER_FLEET_DEVICES")
+    forced = knob_int("AUTOCYCLER_FLEET_DEVICES")
     if forced > 0:
         return forced
     if device is not None and torch.device(device).type == "cpu":

@@ -135,6 +135,37 @@ def make_multihost_mesh(n_devices: Optional[int] = None,
     return Mesh(grid)
 
 
+def shard_leading_axis(replicated: torch.Tensor, *sharded: torch.Tensor,
+                       devices: Sequence[torch.device]):
+    """Lay bucket-stacked tensors across ``devices``, as the JAX package's
+    radix-sharded grouping lays them across its mesh: each ``sharded``
+    tensor's leading axis (one row per radix bucket) splits into
+    contiguous blocks, block i on ``devices[i]``, and ``replicated`` (the
+    codes every bucket gathers from) is copied once to each distinct
+    device. Returns ``(replicas, *blocks)``, each a list with one tensor
+    per entry of ``devices`` (a repeated device shares one replica).
+
+    Raises where the JAX version degrades to unsharded: no device, or a
+    leading axis that does not divide the device count. Every device gets
+    its rows, or the copy raises."""
+    devices = [torch.device(d) for d in devices]
+    if not devices:
+        raise ValueError("shard_leading_axis: no device")
+    n = len(devices)
+    rows = sharded[0].shape[0] if sharded else 0
+    if any(a.shape[0] != rows for a in sharded) or rows % n:
+        raise ValueError(f"shard_leading_axis: {rows} rows do not split "
+                         f"over {n} devices")
+    copies = {}
+    for dev in devices:
+        if dev not in copies:
+            copies[dev] = replicated.to(dev)
+    per = rows // n
+    return ([copies[dev] for dev in devices],
+            *([a[i * per:(i + 1) * per].to(dev)
+               for i, dev in enumerate(devices)] for a in sharded))
+
+
 def place_leading_axis(array, devices: Sequence[torch.device]
                        ) -> List[torch.Tensor]:
     """Split ``array``'s leading axis into contiguous chunks, one per

@@ -68,8 +68,8 @@ def resolve_endpoint(server: Optional[str] = None,
             f"cannot resolve a daemon endpoint from {info_path} "
             f"(missing, unreadable, or torn discovery file) — is "
             f"`autocycler serve` running with that root?")
-    from ..utils.env import env_str
-    env = (env_str("AUTOCYCLER_SERVE") or "").strip()
+    from ..utils.knobs import knob_str
+    env = (knob_str("AUTOCYCLER_SERVE") or "").strip()
     if env:
         return env
     return f"http://127.0.0.1:{DEFAULT_PORT}"
@@ -102,8 +102,8 @@ def request_json(endpoint: str, method: str, path: str,
         # shared-secret auth rides automatically when the client's
         # environment carries the daemon's token knob; the value is sent
         # on the wire only, never logged
-        from ..utils.env import env_str
-        token = env_str("AUTOCYCLER_SERVE_TOKEN") or None
+        from ..utils.knobs import knob_str
+        token = knob_str("AUTOCYCLER_SERVE_TOKEN") or None
         if token:
             headers["Authorization"] = f"Bearer {token}"
         try:

@@ -73,7 +73,7 @@ from ..utils.resilience import InputError, RunManifest
 from ..utils.timing import enable_device_token
 from .protocol import JobSpec, parse_job_spec
 from .slo import SloTracker
-from ..utils.env import env_int
+from ..utils.knobs import knob_int
 
 MANIFEST_NAME = "serve_manifest.json"
 
@@ -94,7 +94,7 @@ def default_workers() -> int:
     """The scheduler pool width: ``AUTOCYCLER_SERVE_WORKERS`` when set
     (floor 1), else ``min(4, cpu//2)`` with floor 1 — conservative because
     every job already fans its own stages across the shared pool."""
-    configured = env_int("AUTOCYCLER_SERVE_WORKERS")
+    configured = knob_int("AUTOCYCLER_SERVE_WORKERS")
     if configured is not None:
         return max(1, int(configured))
     return max(1, min(4, (os.cpu_count() or 2) // 2))
@@ -181,6 +181,10 @@ class Job:
 
 class Scheduler:
     """The daemon's job table + bounded queue + worker pool."""
+
+    # mutations of these instance fields must sit under `with self._lock:`
+    # (the locks.guarded-field rule of `autocycler lint` enforces it)
+    _GUARDED_BY = {"_lock": ("_jobs", "_parents", "_busy", "_next_id")}
 
     def __init__(self, root, capacity: int = 16,
                  workers: Optional[int] = None, device=None):

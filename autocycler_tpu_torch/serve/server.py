@@ -63,7 +63,7 @@ from .. import device as device_mod
 from ..obs import metrics_registry
 from ..obs.timeseries import TimeseriesSampler, timeseries_enabled
 from ..utils import log
-from ..utils.env import env_str
+from ..utils.knobs import knob_str
 from ..utils.resilience import InputError
 from .protocol import (DEFAULT_PORT, SERVE_INFO_JSON, TRACE_HEADER,
                        is_batch_spec, is_fleet_batch, parse_batch_spec,
@@ -318,7 +318,7 @@ class ServeHandle:
         # shared-secret auth: read once at startup so a daemon's policy is
         # stable for its lifetime. Held in memory only — never logged,
         # never echoed into serve.json or an error body.
-        self.token = env_str(TOKEN_ENV) or None
+        self.token = knob_str(TOKEN_ENV) or None
         if not socket_path and not _is_loopback(host) and not self.token:
             raise InputError(
                 f"refusing to bind {host!r} (reachable beyond loopback) "

@@ -30,7 +30,7 @@ from typing import Dict, List, Optional
 
 from ..obs import metrics_registry
 from ..obs.metrics_registry import SECONDS_BUCKETS
-from ..utils.env import env_float
+from ..utils.knobs import knob_float
 
 P50_ENV = "AUTOCYCLER_SLO_P50_S"
 P95_ENV = "AUTOCYCLER_SLO_P95_S"
@@ -59,20 +59,20 @@ def objectives() -> Dict[str, Optional[float]]:
     unparseable knobs mean "no objective"."""
     out: Dict[str, Optional[float]] = {}
     for key, env in (("p50_s", P50_ENV), ("p95_s", P95_ENV)):
-        val = env_float(env)
+        val = knob_float(env)
         out[key] = val if (val is not None and val > 0) else None
     return out
 
 
 def window_seconds() -> float:
-    return max(1.0, float(env_float(WINDOW_ENV)))
+    return max(1.0, float(knob_float(WINDOW_ENV)))
 
 
 def shed_burn_threshold() -> Optional[float]:
     """The burn rate above which the daemon sheds new submissions
     (admission control), or None when shedding is disabled. Re-read per
     call like the objectives, so it is operator-tunable live."""
-    val = env_float(SHED_BURN_ENV)
+    val = knob_float(SHED_BURN_ENV)
     return val if (val is not None and val > 0) else None
 
 

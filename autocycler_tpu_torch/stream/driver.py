@@ -129,25 +129,26 @@ def stream_group_windows_stats(codes: torch.Tensor, seq_len: np.ndarray,
         todo = [b for b in range(plan.n_bins) if int(binner.counts[b])]
 
         def _read(b):
-            occ, reason = spill.read_bin_records(
+            return b, *spill.read_bin_records(
                 run_dir / spill.bin_filename(b),
                 expected=int(binner.counts[b]), fmt=fmt)
-            if occ is None:
-                metrics_registry.counter_inc(
-                    QUARANTINED_BINS_TOTAL, 1,
-                    help="stream bins quarantined as corrupt in pass 2")
-                raise SpillError(f"bin {b} quarantined: {reason}")
-            return occ
 
         groups = []
         launches0 = _launches()
         with substage("stream-sort"):
             # one device stream sorts the bins in order; the workers read
-            # and decode the next bins meanwhile
+            # and decode the next bins meanwhile. A bad bin is quarantined
+            # here, in bin order: a read still in flight when the run dir
+            # goes is never counted
             depth_ahead = plan.pipeline_depth if plan.pipelined else 1
             reads = prefetch_iter(_read, todo, workers + depth_ahead,
                                   depth=depth_ahead + workers - 1)
-            for occ in reads:
+            for b, occ, reason in reads:
+                if occ is None:
+                    metrics_registry.counter_inc(
+                        QUARANTINED_BINS_TOTAL, 1,
+                        help="stream bins quarantined as corrupt in pass 2")
+                    raise SpillError(f"bin {b} quarantined: {reason}")
                 groups.append(sort_bin(codes, torch.from_numpy(occ).to(dev),
                                        layout, k))
         launches1 = _launches()

@@ -21,7 +21,7 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 
-from ..utils.env import env_bool, env_int, env_str
+from ..utils.knobs import knob_bool, knob_int, knob_str
 
 # pass-2 per-record working set: the byte starts (8) + order/gid outputs
 # (16) + the packed keys (4 bytes per word of 10 symbols)
@@ -69,31 +69,31 @@ def plan_stream(total_windows: int, k: int, workers: int = 1) -> StreamPlan:
     ``AUTOCYCLER_STREAM_RLE`` the spill record format."""
     total_windows = max(1, int(total_windows))
     workers = max(1, int(workers))
-    budget = max(64, env_int("AUTOCYCLER_STREAM_MEM_MB")) << 20
+    budget = max(64, knob_int("AUTOCYCLER_STREAM_MEM_MB")) << 20
 
     # pass 2 gets half the budget, split across the concurrent bin sorts
     sort_bytes = _sort_bytes_per_record(k)
     target_bin_records = max(1, (budget // 2) // (sort_bytes * workers))
     n_bins = _clamp(-(-total_windows // target_bin_records), 8, 1024)
-    bins_override = env_int("AUTOCYCLER_STREAM_BINS")
+    bins_override = knob_int("AUTOCYCLER_STREAM_BINS")
     if bins_override > 0:
         n_bins = _clamp(bins_override, 1, 4096)
 
     # pass 1 chunk temporaries get an eighth of the budget
     chunk = _clamp((budget // 8) // _PASS1_BYTES_PER_WINDOW, 1 << 12, 1 << 22)
-    chunk_override = env_int("AUTOCYCLER_STREAM_CHUNK")
+    chunk_override = knob_int("AUTOCYCLER_STREAM_CHUNK")
     if chunk_override > 0:
         chunk = _clamp(chunk_override, 1, 1 << 24)
 
     # bounded write buffers get another eighth, split evenly across bins
     flush = _clamp((budget // 8) // (n_bins * _RECORD_BYTES), 256, 1 << 20)
-    flush_override = env_int("AUTOCYCLER_STREAM_FLUSH")
+    flush_override = knob_int("AUTOCYCLER_STREAM_FLUSH")
     if flush_override > 0:
         flush = _clamp(flush_override, 1, 1 << 22)
 
-    sig_k = _clamp(env_int("AUTOCYCLER_STREAM_SIG_K"), 4, min(k, 27))
-    fmt = 2 if env_bool("AUTOCYCLER_STREAM_RLE") else 1
-    depth = _clamp(env_int("AUTOCYCLER_STREAM_PIPELINE"), 1, 64)
+    sig_k = _clamp(knob_int("AUTOCYCLER_STREAM_SIG_K"), 4, min(k, 27))
+    fmt = 2 if knob_bool("AUTOCYCLER_STREAM_RLE") else 1
+    depth = _clamp(knob_int("AUTOCYCLER_STREAM_PIPELINE"), 1, 64)
     return StreamPlan(n_bins=n_bins, chunk_windows=chunk, flush_records=flush,
                       sig_k=sig_k, mem_budget_bytes=budget,
                       record_format=fmt, pipeline_depth=depth)
@@ -106,14 +106,14 @@ def resolve_stream_mode(total_windows: int, k: int) -> bool:
     """Whether the k-mer grouping streams: ``AUTOCYCLER_STREAM_KMERS`` 'on'
     and 'off' force it; 'auto' (the default, and any other value) streams
     from ``AUTOCYCLER_STREAM_AUTO_WINDOWS`` windows on."""
-    mode = env_str("AUTOCYCLER_STREAM_KMERS").lower()
+    mode = (knob_str("AUTOCYCLER_STREAM_KMERS") or "auto").strip().lower()
     if mode == "on":
         return True
     if mode in _MODE_OFF:
         return False
     if total_windows <= 0 or k < 2:
         return False
-    return total_windows >= env_int("AUTOCYCLER_STREAM_AUTO_WINDOWS")
+    return total_windows >= knob_int("AUTOCYCLER_STREAM_AUTO_WINDOWS")
 
 
 def resolve_threads(threads) -> int:
@@ -124,6 +124,6 @@ def effective_workers(threads: int) -> int:
     """The worker count worth using: no more than the cores, unless
     ``AUTOCYCLER_GROUPING_EXECUTOR`` is set, which takes ``threads`` as
     asked."""
-    if env_str("AUTOCYCLER_GROUPING_EXECUTOR"):
+    if (knob_str("AUTOCYCLER_GROUPING_EXECUTOR") or "").strip():
         return max(1, threads)
     return max(1, min(threads, os.cpu_count() or 1))

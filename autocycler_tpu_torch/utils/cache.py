@@ -46,7 +46,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..obs import metrics_registry
-from .env import env_bool, env_int, env_str
+from .knobs import knob_bool, knob_int, knob_str
 
 # process-wide hit/miss accounting lives in the metrics registry
 # (obs.metrics_registry), inspectable by tests, artifacts and
@@ -74,14 +74,14 @@ def shared_cache_dir() -> Optional[Path]:
     with _shared_dir_lock:
         if _shared_dir is not None:
             return _shared_dir
-    env = (env_str("AUTOCYCLER_CACHE_DIR") or "").strip()
+    env = (knob_str("AUTOCYCLER_CACHE_DIR") or "").strip()
     return Path(env) if env else None
 
 
 def cache_max_bytes() -> Optional[int]:
     """The eviction budget in bytes, or None when eviction is disabled
     (``AUTOCYCLER_CACHE_MAX_BYTES`` <= 0 or unparsable)."""
-    budget = int(env_int("AUTOCYCLER_CACHE_MAX_BYTES"))
+    budget = int(knob_int("AUTOCYCLER_CACHE_MAX_BYTES"))
     return budget if budget > 0 else None
 
 
@@ -106,7 +106,7 @@ def _count(key: str) -> None:
 
 
 def cache_enabled() -> bool:
-    return env_bool("AUTOCYCLER_ENCODE_CACHE")
+    return knob_bool("AUTOCYCLER_ENCODE_CACHE")
 
 
 def content_hash(raw: bytes) -> str:

@@ -36,8 +36,8 @@ def _colour_enabled() -> bool:
 
 
 def _json_mode() -> bool:
-    from .env import env_bool
-    return env_bool("AUTOCYCLER_LOG_JSON")
+    from .knobs import knob_bool
+    return knob_bool("AUTOCYCLER_LOG_JSON")
 
 
 def _emit_json(record_type: str, text: str) -> None:

@@ -49,7 +49,7 @@ from pathlib import Path
 from typing import Callable, Dict, List, Optional, Tuple
 
 from ..obs import metrics_registry
-from .env import env_float, env_int, env_str
+from .knobs import knob_float, knob_int, knob_str
 from .misc import AutocyclerError
 
 DEGRADES_TOTAL = "autocycler_degrades_total"
@@ -282,7 +282,7 @@ def _active_plan_locked() -> Optional[FaultPlan]:
     global _env_plan
     if _fault_plan is not None:
         return _fault_plan
-    spec = env_str("AUTOCYCLER_FAULTS") or ""
+    spec = knob_str("AUTOCYCLER_FAULTS") or ""
     if not spec:
         _env_plan = None
         return None
@@ -351,7 +351,7 @@ def _crash_due_locked(point: str, advance: bool) -> bool:
     """Whether the next hit of ``point`` is armed via AUTOCYCLER_CRASH_POINTS.
     Call under ``_fault_lock``; ``advance`` consumes one hit."""
     global _crash_spec_cache
-    spec = env_str("AUTOCYCLER_CRASH_POINTS")
+    spec = knob_str("AUTOCYCLER_CRASH_POINTS") or ""
     targets: Dict[str, int] = {}
     if spec:
         if _crash_spec_cache is None or _crash_spec_cache[0] != spec:
@@ -485,9 +485,9 @@ def run_command(cmd: List[str], stdout_file=None, cwd=None,
     failed attempt. FileNotFoundError (unlaunchable command) propagates —
     retrying cannot fix a missing binary."""
     if timeout is None:
-        timeout = env_float("AUTOCYCLER_SUBPROCESS_TIMEOUT")
+        timeout = knob_float("AUTOCYCLER_SUBPROCESS_TIMEOUT")
     if retries is None:
-        retries = int(env_int("AUTOCYCLER_SUBPROCESS_RETRIES"))
+        retries = int(knob_int("AUTOCYCLER_SUBPROCESS_RETRIES"))
     cmd = [str(c) for c in cmd]
     attempts = retries + 1
     name = os.path.basename(cmd[0])

@@ -51,7 +51,7 @@ from typing import Callable, Dict, Optional
 
 from ..obs import metrics_registry, trace
 from . import log
-from .env import env_bool, env_int, env_str
+from .knobs import knob_bool, knob_int, knob_str
 from .misc import format_duration
 
 # metric names, the JAX package's
@@ -255,11 +255,11 @@ def xprof_capture(name: str):
     ``AUTOCYCLER_XPROF_LIMIT`` blocks of ``name`` (the count is taken
     whether or not the profiler was free) and yields its trace path, else
     None. The caller links the path from the block's span."""
-    xprof_dir = (env_str("AUTOCYCLER_XPROF") or "").strip()
+    xprof_dir = (knob_str("AUTOCYCLER_XPROF") or "").strip()
     if not xprof_dir:
         yield None
         return
-    limit = env_int("AUTOCYCLER_XPROF_LIMIT")
+    limit = knob_int("AUTOCYCLER_XPROF_LIMIT")
     with _xprof_lock:
         n = _xprof_counts.get(name, 0)
         if n >= limit:
@@ -278,7 +278,7 @@ def xprof_capture(name: str):
 def _stage_profile(name: str):
     """With ``AUTOCYCLER_PROFILE_DIR=<dir>``, the stage ``name`` under the
     profiler, its trace at ``<dir>/<name>/trace-<n>.json``."""
-    profile_dir = (env_str("AUTOCYCLER_PROFILE_DIR") or "").strip()
+    profile_dir = (knob_str("AUTOCYCLER_PROFILE_DIR") or "").strip()
     if not profile_dir:
         yield
         return
@@ -345,7 +345,7 @@ def stage_timer(name: str):
         reg.observe(STAGE_LATENCY_HIST, elapsed,
                     help="per-stage wall latency distribution",
                     buckets=metrics_registry.SECONDS_BUCKETS, stage=name)
-        if env_bool("AUTOCYCLER_TIMINGS"):
+        if knob_bool("AUTOCYCLER_TIMINGS"):
             log.message(f"[timing] {name}: {format_duration(elapsed)}")
             for sub, secs in substage_deltas(before).items():
                 log.message(f"[timing] {name} · {sub}: "

@@ -290,6 +290,33 @@ def phase_kernels() -> None:
     check_dps()
     check_hashing()
     check_stream()
+    check_radix()
+
+
+def check_radix() -> None:
+    """[radix] in [kernels]: the radix-sharded grouping with statistics of
+    a small input over [cuda:0] * 2 (the kernel once a row) against the
+    same over CPU tensors (the plain version), exact, at k 51 and 5."""
+    from autocycler_tpu_torch.ops import kmers
+
+    rng = np.random.default_rng(29)
+    errs = {}
+    for k, n in ((51, 300_000), (5, 200_000)):
+        codes = rng.integers(0, 5, size=n + k).astype(np.uint8)
+        starts = rng.integers(0, n, size=n).astype(np.int64)
+        runs = {}
+        for dev in ("cuda:0", "cpu"):
+            runs[dev] = kmers.radix_rank(
+                torch.from_numpy(codes).to(dev),
+                torch.from_numpy(starts).to(dev), k, devices=[dev] * 2,
+                stats=True)
+        errs[k] = max(_max_err(a.cpu(), b)
+                      for a, b in zip(runs["cuda:0"], runs["cpu"]))
+    if any(errs.values()):
+        raise AssertionError(f"[kernels] radix-sharded grouping disagrees "
+                             f"with its plain version: {errs}")
+    log(f"[kernels] radix-sharded grouping over [cuda:0] * 2 exact against "
+        f"CPU tensors (max_abs_err by k: {errs})")
 
 
 def _strands(rng, k: int, w: int):
@@ -1496,6 +1523,7 @@ def phase_batch(work: Path) -> None:
     from autocycler_tpu_torch.commands import batch as batch_mod
     from autocycler_tpu_torch.parallel import batch as pbatch
     from autocycler_tpu_torch.parallel import fleet, mesh
+    from autocycler_tpu_torch.utils.knobs import knob_int
 
     t0 = time.perf_counter()
     parent = _batch_isolates(work)
@@ -1542,7 +1570,7 @@ def phase_batch(work: Path) -> None:
     n_dev = fleet.fleet_devices()
     plan = fleet.plan_fleet(
         {n: fleet.isolate_cost(parent / n) for n in names}, n_dev,
-        int(os.environ.get("AUTOCYCLER_FLEET_BUCKETS", "4")))
+        knob_int("AUTOCYCLER_FLEET_BUCKETS"))
     shards = [(sh.index, sh.bucket, list(sh.names)) for sh in plan.shards]
     log(f"[batch] fleet plan ({n_dev} device(s)): {json.dumps(shards)}")
     if any(len(sh.names) != 1 for sh in plan.shards) or \
@@ -2128,6 +2156,95 @@ def phase_stream(work: Path, streamed: dict):
     return k51[0]
 
 
+def phase_radix(work: Path) -> dict:
+    """The headline compress through the CLI with the radix-sharded
+    grouping (AUTOCYCLER_DEVICE_GROUPING=radix) in memory
+    (AUTOCYCLER_STREAM_KMERS=off): its GFA and YAML must equal [stream]'s
+    in-memory compress's. Then the radix grouping with statistics of that
+    compress's k=51 windows over a 4-shard mesh of cuda:0, which must equal
+    the 1-device result and pack_rank over all windows. Returns the
+    grouping launches of both runs, for the kernels line."""
+    from autocycler_tpu_torch import device
+    from autocycler_tpu_torch.ops import kmers
+
+    asm, out = work / "headline" / "assemblies", work / "radix"
+    seen = []
+    real = kmers.radix_rank
+
+    def capture(codes, starts, k, threads=None, devices=None, stats=False):
+        if stats:
+            seen.append((codes, starts, k))
+        return real(codes, starts, k, threads, devices, stats)
+
+    knobs = {"AUTOCYCLER_STREAM_KMERS": "off",
+             "AUTOCYCLER_DEVICE_GROUPING": "radix"}
+    os.environ.update(knobs)
+    kmers.radix_rank = capture
+    try:
+        run = run_cli("headline compress, radix-sharded",
+                      ["compress", "-i", asm, "-a", out, "--kmer", "51"],
+                      "radix")
+    finally:
+        kmers.radix_rank = real
+        for name in knobs:
+            os.environ.pop(name)
+    if run["stream"] or (out / ".stream").exists():
+        raise AssertionError("[radix] the radix compress streamed")
+    for name in ("input_assemblies.gfa", "input_assemblies.yaml"):
+        if (out / name).read_bytes() != \
+                (work / "in_memory" / name).read_bytes():
+            raise AssertionError(f"[radix] {name} of the radix compress "
+                                 "differs from [stream]'s in-memory one")
+    dispatches = {name: run["dp"][name] for name in
+                  (kmers.RADIX_STATS_DISPATCH, kmers.RADIX_DISPATCH)}
+    launches = run["launches"]["sortnet_pack_rank"]
+    if [d["dispatches"] for d in dispatches.values()] != [1, 2] or \
+            launches < 3 or len(seen) != 1:
+        raise AssertionError(f"[radix] dispatches {dispatches}, grouping "
+                             f"launches {launches}, {len(seen)} k-mer "
+                             "groupings with statistics")
+    log("[radix] headline compress, radix-sharded: " + json.dumps({
+        "wall_s": run["wall_s"],
+        "substages_s": {name: run["substages"].get(name)
+                        for name in ("partition", "sort", "stitch",
+                                     "k-mer grouping", "gram grouping")},
+        "grouping_launches": launches,
+        "grouping_kernel_ms": run["kernel_ms"].get("sortnet_pack_rank"),
+        "dispatches": {name: {key: d[key] for key in
+                              ("dispatches", "rows", "windows", "ms")
+                              if key in d}
+                       for name, d in dispatches.items()},
+        "peak_device_bytes": run["peak_device_bytes"]}))
+    log("[radix] the radix compress writes [stream]'s in-memory GFA and "
+        "YAML, byte for byte")
+
+    codes, starts, k = seen[0]
+    cuda0 = torch.device("cuda:0")
+    device.reset_counts()
+    t0 = time.perf_counter()
+    mesh = real(codes, starts, k, devices=[cuda0] * 4, stats=True)
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    mesh_launches = device.launches["sortnet_pack_rank"]
+    mesh_record = device.dp_summary(kmers.RADIX_STATS_DISPATCH)
+    one = real(codes, starts, k, devices=[cuda0], stats=True)
+    order, gid_sorted = kmers.rank_windows(codes, starts, k)
+    whole = (order, gid_sorted, *kmers.segment_stats(order, gid_sorted))
+    names = ("order", "gid_sorted", "depth", "first_occ")
+    bad = [name for name, a, b, c in zip(names, mesh, one, whole)
+           if not (torch.equal(a, b) and torch.equal(a, c))]
+    if bad or mesh_launches == 0:
+        raise AssertionError(f"[radix] the 4-shard mesh differs in {bad} "
+                             f"(launches {mesh_launches})")
+    log("[radix] k=51 windows over [cuda:0] * 4: " + json.dumps({
+        "windows": len(starts), "rows": mesh_record["rows"],
+        "grouping_launches": mesh_launches, "wall_s": mesh_s,
+        "dispatch_ms": mesh_record.get("ms")})
+        + "; equal to the 1-device result and pack_rank over all windows")
+    del seen, codes, starts, mesh, one, whole, order, gid_sorted
+    return {"headline compress": launches, "mesh [cuda:0] * 4": mesh_launches}
+
+
 def _file_hashes(root: Path) -> dict:
     """{path relative to root: sha256} of every file under root."""
     import hashlib
@@ -2343,6 +2460,31 @@ def _cli_call(argv, env=None):
     return rc, out.getvalue(), err.getvalue()
 
 
+def tools_lint() -> None:
+    """`lint --json` over the port and chip_smoke.py in a fresh process: exit
+    0 with 0 findings; `lint --knobs-md` equals docs_torch/cli.md's knob
+    table."""
+    lint = subprocess.run([sys.executable, "-m", "autocycler_tpu_torch",
+                           "lint", "--json"], cwd=REPO, capture_output=True,
+                          text=True, timeout=300)
+    result = json.loads(lint.stdout) if lint.returncode in (0, 1) else {}
+    knobs_md = subprocess.run([sys.executable, "-m", "autocycler_tpu_torch",
+                               "lint", "--knobs-md"], cwd=REPO,
+                              capture_output=True, text=True, timeout=300)
+    page = (REPO / "docs_torch" / "cli.md").read_text()
+    begin, end = "<!-- knobs:begin -->\n", "<!-- knobs:end -->"
+    table = page[page.index(begin) + len(begin):page.index(end)]
+    if lint.returncode or result.get("findings") or knobs_md.returncode \
+            or knobs_md.stdout != table:
+        raise AssertionError(f"[tools] lint: rc {lint.returncode}, "
+                             f"{result.get('findings')}, --knobs-md rc "
+                             f"{knobs_md.returncode}\n{lint.stderr[-2000:]}")
+    log(f"[tools] lint: 0 findings across {result['files']} files, "
+        f"{len(result['rules'])} rules, {result['wall_s']} s, Python "
+        f"{sys.version.split()[0]}; --knobs-md equals docs_torch/cli.md's "
+        "table")
+
+
 def phase_tools(work: Path) -> None:
     """The host commands of a user's pipeline on the small inputs, through
     the CLI: subsample of a FASTQ drawn from a seed, table (the header, and
@@ -2457,6 +2599,7 @@ def phase_tools(work: Path) -> None:
     if any(untraced.get(n) != h for n, h in traced.items()):
         raise AssertionError("[tools] the traced small pipeline's files "
                              "differ from [main]'s untraced run")
+    tools_lint()
     log(f"[tools] subsample ({len(subsets) - 1} subsets, StdRng shuffle), "
         "table, gfa2fasta, clean --remove and --cache, helper flye (stub) "
         "and raven (missing: exit 1), and the small pipeline traced "
@@ -3074,7 +3217,7 @@ def timing_match_grid_mxu(a, b, k: int, tile: int):
 
 
 def phase_timing(paths, groupings, plasmid_pair, dotplot_groupings,
-                 grid_words, batch_runs):
+                 grid_words, batch_runs, radix_launches):
     """``groupings`` is (the streamed compress's groupings, its bin count,
     the in-memory k=51 grouping)."""
     a, b = grid_words
@@ -3096,6 +3239,7 @@ def phase_timing(paths, groupings, plasmid_pair, dotplot_groupings,
     sortnet = next(r for r in rows if r["name"] == "sortnet_pack_rank")
     sortnet["batch_launches"] = {
         label: run["grouping_launches"] for label, run in batch_runs.items()}
+    sortnet["radix_launches"] = radix_launches
     return rows
 
 
@@ -3616,6 +3760,40 @@ def doctor_main() -> int:
     return 0
 
 
+def radix_main() -> int:
+    """``--radix``: [build], [kernels], the headline compress in memory
+    (as [stream] runs it), [radix] and the lint of [tools]."""
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO / "tests"))
+    from synthetic import make_assemblies_fast
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    log(f"[device] {smi}")
+    with _phase("build"):
+        phase_build()
+    with _phase("kernels"):
+        phase_kernels()
+    with tempfile.TemporaryDirectory() as td:
+        work = Path(td)
+        asm = make_assemblies_fast(work / "headline", **HEADLINE)
+        os.environ["AUTOCYCLER_STREAM_KMERS"] = "off"
+        try:
+            run_cli("headline compress, in memory",
+                    ["compress", "-i", asm, "-a", work / "in_memory",
+                     "--kmer", "51"], "stream")
+        finally:
+            os.environ.pop("AUTOCYCLER_STREAM_KMERS")
+        with _phase("radix"):
+            phase_radix(work)
+    with _phase("tools"):
+        tools_lint()
+    return 0
+
+
 PIPELINE_ORDER = ("parent", "change", "change", "parent")
 
 
@@ -3739,6 +3917,8 @@ def main() -> int:
             compress_groupings, n_bins = phase_handoff(Path(td))
         with _phase("stream"):
             in_memory = phase_stream(Path(td), compressed)
+        with _phase("radix"):
+            radix_launches = phase_radix(Path(td))
         with _phase("sketch"):
             phase_sketch(Path(td))
     with _phase("grid"):
@@ -3746,7 +3926,7 @@ def main() -> int:
     with _phase("timing"):
         rows = phase_timing(paths, (compress_groupings, n_bins, in_memory),
                             plasmid_pair, dotplot_groupings, grid_words,
-                            batch_runs)
+                            batch_runs, radix_launches)
     if any(r["max_abs_err"] != 0 for r in rows):
         raise AssertionError("[timing] a kernel disagrees with its plain "
                              "version at the main path's shapes")
@@ -3761,5 +3941,6 @@ def main() -> int:
 if __name__ == "__main__":
     sys.exit({"--serve-costs": serve_costs_main,
               "--doctor": doctor_main,
-              "--pipeline-costs": pipeline_costs_main}.get(
+              "--pipeline-costs": pipeline_costs_main,
+              "--radix": radix_main}.get(
                   " ".join(sys.argv[1:2]), main)())

@@ -24,7 +24,7 @@ from autocycler_tpu_torch.obs import metrics_registry
 from autocycler_tpu_torch.ops import sketch
 from autocycler_tpu_torch.utils import AutocyclerError
 from autocycler_tpu_torch.utils import cache
-from autocycler_tpu_torch.utils.env import DEFAULTS
+from autocycler_tpu_torch.utils.knobs import KNOBS as PORT_KNOBS
 
 from synthetic import make_assemblies
 
@@ -130,8 +130,8 @@ def test_budget_hit_refreshes_lru_rank(tmp_path):
 
 
 @pytest.mark.parametrize("raw,want", [
-    (None, DEFAULTS["AUTOCYCLER_CACHE_MAX_BYTES"]), ("12345", 12345),
-    ("0", None), ("-1", None), ("junk", DEFAULTS["AUTOCYCLER_CACHE_MAX_BYTES"])])
+    (None, PORT_KNOBS["AUTOCYCLER_CACHE_MAX_BYTES"].default), ("12345", 12345),
+    ("0", None), ("-1", None), ("junk", PORT_KNOBS["AUTOCYCLER_CACHE_MAX_BYTES"].default)])
 def test_cache_max_bytes_env(monkeypatch, raw, want):
     if raw is not None:
         monkeypatch.setenv("AUTOCYCLER_CACHE_MAX_BYTES", raw)

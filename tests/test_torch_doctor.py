@@ -270,12 +270,13 @@ def test_recommended_actions_one_per_case_as_jax(port_kind, jax_kind, neg,
 
 
 def test_lint_state_has_no_baseline_until_lint_is_ported(tmp_path):
-    """The port reads its own lint baseline path (none yet), never the JAX
-    package's lint_baseline.json; a run dir's lint_report.json is read as
-    the JAX package reads it."""
+    """The port reads its own lint baseline, lint_baseline_torch.json (empty:
+    the tree lints clean), never the JAX package's lint_baseline.json; a
+    run dir's lint_report.json is read as the JAX package reads it."""
     assert (REPO / "lint_baseline.json").is_file()
     state = doctor.lint_state(str(tmp_path))
-    assert state == {"baseline": None, "baselined": 0, "report": None}
+    assert state == {"baseline": str(REPO / "lint_baseline_torch.json"),
+                     "baselined": 0, "report": None}
     (tmp_path / "lint_report.json").write_text(json.dumps(
         {"findings": [{}, {}], "files": 3, "wall_s": 0.5}))
     assert doctor.lint_state(str(tmp_path))["report"] == \

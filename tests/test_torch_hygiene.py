@@ -153,16 +153,17 @@ def test_no_port_file_imports_jax_or_the_jax_package():
     assert offenders == []
 
 
-KNOB_READ = re.compile(r"""(?:env_(?:str|int|bool|float)|environ\.get|"""
-                       r"""getenv|setdefault)\(\s*["'](AUTOCYCLER_\w+)["']""")
+KNOB_READ = re.compile(r"""(?:knob_(?:str|int|bool|float|raw|set)|"""
+                       r"""environ\.get|getenv|setdefault)"""
+                       r"""\(\s*["'](AUTOCYCLER_\w+)["']""")
 
 
 def test_every_knob_the_port_reads_has_the_jax_default():
-    """Each AUTOCYCLER_* knob the port reads is in utils/env.py's DEFAULTS,
-    with the default of the JAX package's knob registry, and every reader
-    of the port takes it from there."""
+    """Each AUTOCYCLER_* knob the port reads is declared in utils/knobs.py's
+    KNOBS, with the kind and default of the JAX package's knob registry,
+    and every reader of the port takes it from there."""
     from autocycler_tpu.utils.knobs import KNOBS
-    from autocycler_tpu_torch.utils.env import DEFAULTS
+    from autocycler_tpu_torch.utils.knobs import KNOBS as PORT_KNOBS
     read = set()
     for f in PORT.rglob("*.py"):
         read |= set(KNOB_READ.findall(f.read_text()))
@@ -170,14 +171,15 @@ def test_every_knob_the_port_reads_has_the_jax_default():
             "AUTOCYCLER_FED_STALE_S", "AUTOCYCLER_SCALE_OUT_BURN",
             "AUTOCYCLER_SCALE_OUT_UTIL", "AUTOCYCLER_SCALE_OUT_QUEUE",
             "AUTOCYCLER_SCALE_IN_UTIL", "AUTOCYCLER_SCALE_COOLDOWN_S",
-            "AUTOCYCLER_SCALE_HYSTERESIS"} <= read
-    assert sorted(read - set(DEFAULTS)) == []
+            "AUTOCYCLER_SCALE_HYSTERESIS",
+            "AUTOCYCLER_DEVICE_GROUPING"} <= read
+    assert sorted(read - set(PORT_KNOBS)) == []
     for name in read:
-        knob = KNOBS[name]
-        default = DEFAULTS[name]
-        assert default == (knob.default or type(default)()), name
-    # a reader passes no default of its own: DEFAULTS is the one source
-    own = re.compile(r"""env_(?:str|int|bool|float)\(\s*["']AUTOCYCLER_\w+["']"""
+        knob, port_knob = KNOBS[name], PORT_KNOBS[name]
+        assert (port_knob.kind, port_knob.default) == \
+            (knob.kind, knob.default), name
+    # a reader passes no default of its own: KNOBS is the one source
+    own = re.compile(r"""knob_(?:str|int|bool|float)\(\s*["']AUTOCYCLER_\w+["']"""
                      r"""\s*,""")
     offenders = [str(f.relative_to(REPO)) for f in PORT.rglob("*.py")
                  if own.search(f.read_text())]

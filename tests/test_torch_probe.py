@@ -21,7 +21,7 @@ import torch
 
 from autocycler_tpu_torch import device
 from autocycler_tpu_torch.obs import sentinel
-from autocycler_tpu_torch.utils import AutocyclerError, env, timing
+from autocycler_tpu_torch.utils import AutocyclerError, knobs, timing
 
 
 @pytest.fixture(autouse=True)
@@ -104,7 +104,7 @@ def test_malformed_timeout_warns_and_defaults(monkeypatch, capsys):
     seen = []
     monkeypatch.setattr(device, "_probe_attempt", lambda timeout: (
         seen.append(timeout) or (False, "stub", "no-cuda", {}, 0.0)))
-    env._warned.discard("AUTOCYCLER_PROBE_DEADLINE_S")
+    knobs._warned.discard("AUTOCYCLER_PROBE_DEADLINE_S")
     monkeypatch.setenv("AUTOCYCLER_PROBE_DEADLINE_S", "banana")
     assert device._cuda_attached() is False
     assert seen == [60.0]
@@ -262,7 +262,7 @@ def test_probe_deadline_env_takes_precedence(monkeypatch, capsys):
     monkeypatch.setattr(device, "_probe_attempt", lambda timeout: (
         seen.append(timeout) or (False, "stub", "no-cuda", {}, 0.0)))
     monkeypatch.setenv("AUTOCYCLER_PROBE_DEADLINE_S", "pear")
-    env._warned.discard("AUTOCYCLER_PROBE_DEADLINE_S")
+    knobs._warned.discard("AUTOCYCLER_PROBE_DEADLINE_S")
     assert device._cuda_attached() is False
     assert seen == [60.0]
     err = capsys.readouterr().err

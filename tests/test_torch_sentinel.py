@@ -22,7 +22,7 @@ import torch
 
 from autocycler_tpu_torch import device
 from autocycler_tpu_torch.obs import metrics_registry, sentinel
-from autocycler_tpu_torch.utils import env
+from autocycler_tpu_torch.utils import knobs
 
 
 @pytest.fixture(autouse=True)
@@ -378,7 +378,7 @@ def test_probe_log_rotation_disabled_with_zero(tmp_path, monkeypatch):
 def test_probe_log_max_default_and_garbage(monkeypatch):
     monkeypatch.delenv("AUTOCYCLER_PROBE_LOG_MAX", raising=False)
     assert sentinel.probe_log_max() == 500
-    env._warned.discard("AUTOCYCLER_PROBE_LOG_MAX")
+    knobs._warned.discard("AUTOCYCLER_PROBE_LOG_MAX")
     monkeypatch.setenv("AUTOCYCLER_PROBE_LOG_MAX", "banana")
     assert sentinel.probe_log_max() == 500
     monkeypatch.setenv("AUTOCYCLER_PROBE_LOG_MAX", "-3")

@@ -464,7 +464,7 @@ def test_registry_and_records_survive_jobs(inputs, tmp_path, capsys):
         in raw["raw"]
     # the one record left is the one no job made
     assert [len(r) for r in device.dp_dispatches.values()] == \
-        [1, 0, 0, 0, 0, 0]
+        [1, 0, 0, 0, 0, 0, 0, 0]
     assert not any(device.work_blocks.values())
     total, kinds = dispatched()
     # each compress groups three times (end repair, windows, grams)

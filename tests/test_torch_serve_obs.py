@@ -190,7 +190,7 @@ def test_cli_samples_beside_a_traced_run(asm, tmp_path, monkeypatch, capsys):
     assert len(ticks) >= 2 and json.loads(ticks[-1])["tick"] == len(ticks)
     assert (tmp_path / "trace" / "trace.jsonl").is_file()
     assert cli.NO_RUN_COMMANDS == {"report", "doctor", "watch", "top",
-                                   "serve", "submit"}
+                                   "serve", "submit", "lint"}
     capsys.readouterr()
 
 

@@ -188,14 +188,15 @@ def test_default_dispatch_is_the_jax_threshold():
 
 def test_env_defaults_match_jax_knobs(monkeypatch):
     from autocycler_tpu.utils import knobs
-    from autocycler_tpu_torch.utils import env
-    readers = {"str": env.env_str, "int": env.env_int, "bool": env.env_bool,
-               "float": env.env_float}
-    for name, default in env.DEFAULTS.items():
+    from autocycler_tpu_torch.utils import knobs as port_knobs
+    readers = {"str": port_knobs.knob_str, "int": port_knobs.knob_int,
+               "bool": port_knobs.knob_bool, "float": port_knobs.knob_float}
+    for name, port_knob in port_knobs.KNOBS.items():
         monkeypatch.delenv(name, raising=False)
         knob = knobs.KNOBS[name]
-        assert default == (knob.default or type(default)()), name
-        assert readers[knob.kind](name) == default, name
+        assert (port_knob.kind, port_knob.default) == \
+            (knob.kind, knob.default), name
+        assert readers[knob.kind](name) == knob.default, name
     # no reader falls back on a default of its own for an unlisted knob
     for reader in readers.values():
         with pytest.raises(KeyError):
@@ -505,6 +506,32 @@ def test_corrupt_bin_degrades_visibly(monkeypatch, tmp_path, capsys,
         assert np.array_equal(getattr(mem, name), getattr(degraded, name)), \
             name
     assert not list((tmp_path / ".stream").glob("run-*"))
+
+
+def test_a_quarantined_bin_counts_once_whatever_reads_are_in_flight(
+        monkeypatch, tmp_path):
+    """Pass 2 reads bins ahead of the sorts. The first bad bin in bin order
+    is quarantined and ends the pass; a later bin whose read fails while
+    it was in flight (here every read fails, the first one last) is not
+    counted."""
+    import time
+
+    seqs = _random_seqs(seed=5)
+    st.set_stream_root(tmp_path / ".stream")
+    first = []
+
+    def failing_read(path, expected, fmt):
+        if not first:
+            first.append(path.name)
+            time.sleep(0.3)
+        return None, "unreadable bin"
+
+    monkeypatch.setattr(spill, "read_bin_records", failing_read)
+    _index(seqs, monkeypatch, "on", BINS="5", PIPELINE="3")
+    events = rz.degrade_events("stream-kmers")
+    assert len(events) == 1 and events[0]["reason"].startswith(
+        "SpillError: bin ")
+    assert _metric(driver.QUARANTINED_BINS_TOTAL) == 1
 
 
 def test_write_error_degrades_visibly(monkeypatch, tmp_path, capsys):
