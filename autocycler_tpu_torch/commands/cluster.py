@@ -37,7 +37,7 @@ from ..utils import (format_float, load_file_lines, log, median, quit_with_error
                      usize_division_rounded)
 from ..utils.cache import open_cache
 from ..utils.knobs import knob_int, knob_str
-from ..utils.timing import stage_timer
+from ..utils.timing import stage_timer, substage
 
 
 # ---------------- tree ----------------
@@ -653,12 +653,16 @@ def save_cluster_gfa(sequences: List[Sequence], cluster_num: int,
     GFA text — the subset produces the identical graph without the text
     round trip). Returns (cluster_graph, cluster_seqs) so in-process
     callers can hand them to trim(preloaded=...)."""
-    cluster_seqs = [_clone_seq(s) for s in sequences if s.cluster == cluster_num]
-    cluster_graph = graph.subset_for_sequences([s.id for s in cluster_seqs])
-    cluster_graph.recalculate_depths()
-    cluster_graph.remove_zero_depth_unitigs()
-    merge_linear_paths(cluster_graph, cluster_seqs)
-    cluster_graph.save_gfa(out_gfa, cluster_seqs)
+    with substage("cluster-subset"):
+        cluster_seqs = [_clone_seq(s) for s in sequences
+                        if s.cluster == cluster_num]
+        cluster_graph = graph.subset_for_sequences(
+            [s.id for s in cluster_seqs])
+        cluster_graph.recalculate_depths()
+        cluster_graph.remove_zero_depth_unitigs()
+        merge_linear_paths(cluster_graph, cluster_seqs)
+    with substage("cluster-save-gfa"):
+        cluster_graph.save_gfa(out_gfa, cluster_seqs)
     return cluster_graph, cluster_seqs
 
 
@@ -747,8 +751,9 @@ def compute_distances(graph, sequences, device=None, autocycler_dir=None
     record = {"mode": mode, "sketch_s": sketch_params()[2]}
     sketch = exact = None
     if mode in ("sketch", "verify"):
-        sketch = sketch_contig_distances(graph, sequences, device,
-                                         cache=open_cache(autocycler_dir))
+        with substage("cluster-sketch-distances"):
+            sketch = sketch_contig_distances(graph, sequences, device,
+                                             cache=open_cache(autocycler_dir))
     if mode in ("exact", "verify"):
         exact = pairwise_contig_distances(graph, sequences, device=device)
     if mode == "verify":
@@ -791,8 +796,10 @@ def cluster(autocycler_dir, cutoff: float = 0.2, min_assemblies: Optional[int] =
                     "cluster will then contain sequences which can be combined into a "
                     "consensus.")
     with stage_timer("cluster/load"):
-        gfa_lines = load_file_lines(gfa)
-        graph, sequences = UnitigGraph.from_gfa_lines(gfa_lines)
+        with substage("cluster-read"):
+            gfa_lines = load_file_lines(gfa)
+        with substage("cluster-parse"):
+            graph, sequences = UnitigGraph.from_gfa_lines(gfa_lines)
     min_asm = set_min_assemblies(min_assemblies, sequences)
     manual_clusters = parse_manual_clusters(manual)
 
@@ -817,27 +824,34 @@ def cluster(autocycler_dir, cutoff: float = 0.2, min_assemblies: Optional[int] =
                 graph, sequences, dev, autocycler_dir=autocycler_dir)
         obs_qc.record("cluster_distance", contigs=len(sequences),
                       **distance_record)
-        save_distance_matrix(asym, sequences,
-                             clustering_dir / "pairwise_distances.phylip")
+        with substage("cluster-save-matrix"):
+            save_distance_matrix(asym, sequences,
+                                 clustering_dir / "pairwise_distances.phylip")
 
     log.section_header("Clustering sequences")
     log.explanation("Contigs are organised into a tree using UPGMA. Then clusters are "
                     "defined from the tree using the distance cutoff.")
     with stage_timer("cluster/tree"):
-        sym = make_symmetrical_distances(asym, sequences)
-        tree = upgma(sym, sequences)
-        normalise_tree(tree)
-        save_tree_to_newick(tree, sequences, clustering_dir / "clustering.newick")
-
-        qc_results = generate_clusters(tree, sequences, asym, cutoff, min_asm,
-                                       manual_clusters)
+        with substage("cluster-upgma"):
+            sym = make_symmetrical_distances(asym, sequences)
+            tree = upgma(sym, sequences)
+        with substage("cluster-newick"):
+            normalise_tree(tree)
+            save_tree_to_newick(tree, sequences,
+                                clustering_dir / "clustering.newick")
+        with substage("cluster-generate"):
+            qc_results = generate_clusters(tree, sequences, asym, cutoff,
+                                           min_asm, manual_clusters)
     with stage_timer("cluster/outputs"):
         handoff = save_clusters(sequences, qc_results, clustering_dir, graph,
                                 collect_handoff=collect_handoff)
-        save_data_to_tsv(sequences, qc_results, clustering_dir / "clustering.tsv")
-        clustering_metrics(sequences, qc_results).save_to_yaml(
-            clustering_dir / "clustering.yaml")
-    obs_qc.cluster_qc(sequences, qc_results)
+        with substage("cluster-save-tsv"):
+            save_data_to_tsv(sequences, qc_results,
+                             clustering_dir / "clustering.tsv")
+            clustering_metrics(sequences, qc_results).save_to_yaml(
+                clustering_dir / "clustering.yaml")
+    with substage("cluster-qc"):
+        obs_qc.cluster_qc(sequences, qc_results)
     ledger.record_stage(
         "cluster", inputs=[gfa],
         outputs=[clustering_dir / "pairwise_distances.phylip",

@@ -100,7 +100,8 @@ def compress(assemblies_dir, autocycler_dir, k_size: int = 51,
     with substage("write"):
         graph.save_gfa(out_gfa, sequences)
         _save_metrics(metrics, assembly_count, sequences, graph, out_yaml)
-    qc.compress_qc(graph, sequences)
+    with substage("compress-qc"):
+        qc.compress_qc(graph, sequences)
     ledger.record_stage("compress", outputs=[out_gfa, out_yaml])
     # the artifacts are flushed but no caller's manifest has recorded the
     # stage yet: a crash here re-runs compress on resume, to the same bytes

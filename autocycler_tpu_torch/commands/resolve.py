@@ -28,7 +28,7 @@ from ..obs import ledger, qc
 from ..ops.align import global_alignment_distance_batch
 from ..utils import (load_file_lines, log, quit_with_error, reverse_signed_path,
                      sign_at_end, sign_at_end_vec)
-from ..utils.timing import stage_timer
+from ..utils.timing import stage_timer, substage
 
 # medoid pairs of up to 2**6 unitigs share one device batch
 _SHORT_PAIR_CLASS = 6
@@ -94,6 +94,7 @@ class Bridge:
                 f"{sign_at_end(self.end)} ({self.depth()}x)")
 
 
+@substage("resolve-anchors")
 def find_anchor_unitigs(graph: UnitigGraph, sequences: List[Sequence]) -> List[int]:
     """Anchors occur once and only once in every sequence
     (reference resolve.rs:134-163)."""
@@ -137,29 +138,34 @@ def group_paths_by_start_end(paths: List[List[int]]
     return grouped
 
 
+@substage("resolve-bridges")
 def create_bridges(graph: UnitigGraph, sequences: List[Sequence], anchors: List[int],
                    verbose: bool = False, device=None) -> List[Bridge]:
     """One Bridge per (start, end) anchor pair; sequences contribute their
     path consensus_weight times (reference resolve.rs:166-190)."""
-    anchor_set = set(anchors)
-    all_paths = graph.get_unitig_paths_for_sequences([s.id for s in sequences])
-    sequence_paths = []
-    for s in sequences:
-        weight = s.consensus_weight()
-        if verbose:
-            log.message(f"{s} consensus weight = {weight}")
-        path = [n if st else -n for n, st in all_paths[s.id]]
-        sequence_paths.extend([list(path) for _ in range(weight)])
-    a_to_a = get_anchor_to_anchor_paths(sequence_paths, anchor_set)
-    grouped = group_paths_by_start_end(a_to_a)
-    unitig_lengths = {u.number: u.length() for u in graph.unitigs}
+    with substage("bridge-paths"):
+        anchor_set = set(anchors)
+        all_paths = graph.get_unitig_paths_for_sequences(
+            [s.id for s in sequences])
+        sequence_paths = []
+        for s in sequences:
+            weight = s.consensus_weight()
+            if verbose:
+                log.message(f"{s} consensus weight = {weight}")
+            path = [n if st else -n for n, st in all_paths[s.id]]
+            sequence_paths.extend([list(path) for _ in range(weight)])
+        a_to_a = get_anchor_to_anchor_paths(sequence_paths, anchor_set)
+        grouped = group_paths_by_start_end(a_to_a)
+        unitig_lengths = {u.number: u.length() for u in graph.unitigs}
     pair_distances = _batched_medoid_distances(grouped, unitig_lengths, device)
-    bridges = [Bridge(start, end, paths, pair_distances)
-               for (start, end), paths in grouped.items()]
-    bridges.sort(key=Bridge.sort_key)
+    with substage("bridge-build"):
+        bridges = [Bridge(start, end, paths, pair_distances)
+                   for (start, end), paths in grouped.items()]
+        bridges.sort(key=Bridge.sort_key)
     return bridges
 
 
+@substage("medoid-distances")
 def _batched_medoid_distances(grouped, unitig_lengths, device) -> Dict[tuple, int]:
     """Every bridge group's distinct-path pairs through the batched DP on
     ``device`` (ops.align.global_alignment_distance_batch) instead of
@@ -206,6 +212,7 @@ def determine_ambiguity(bridges: List[Bridge]) -> int:
     return count
 
 
+@substage("resolve-apply")
 def apply_bridges(graph: UnitigGraph, bridges: List[Bridge], bridge_depth: float) -> None:
     """Apply non-conflicting bridges: replace the links out of each start and
     into each end with a bridge unitig (or a direct link for empty paths),
@@ -249,6 +256,7 @@ def _delete_unitigs_not_connected_to_anchor(graph: UnitigGraph) -> None:
     graph.remove_unitigs_by_number(to_delete)
 
 
+@substage("resolve-merge")
 def merge_after_bridging(graph: UnitigGraph) -> None:
     merge_linear_paths(graph, [])
     graph.print_basic_graph_info()
@@ -276,6 +284,7 @@ def print_bridges(bridges: List[Bridge], verbose: bool) -> None:
     log.message()
 
 
+@substage("resolve-cull")
 def cull_ambiguity(bridges: List[Bridge], verbose: bool = False) -> int:
     """Iteratively remove the lowest-depth conflicting bridge until no
     conflicts remain (reference resolve.rs:285-313)."""
@@ -318,7 +327,7 @@ def resolve(cluster_dir, verbose: bool = False, device=None,
 
     log.section_header("Starting autocycler resolve")
     log.explanation("This command resolves repeats in the unitig graph.")
-    with stage_timer("resolve/load"):
+    with stage_timer("resolve/load"), substage("resolve-load"):
         if preloaded is not None:
             graph, sequences = preloaded
             gfa_lines = None
@@ -326,7 +335,7 @@ def resolve(cluster_dir, verbose: bool = False, device=None,
         else:
             gfa_lines = load_file_lines(trimmed_gfa)
             graph, sequences = UnitigGraph.from_gfa_lines(gfa_lines)
-    graph.print_basic_graph_info()
+        graph.print_basic_graph_info()
 
     log.section_header("Finding anchor unitigs")
     log.explanation("Anchor unitigs are those that occur once and only once in each "
@@ -341,7 +350,8 @@ def resolve(cluster_dir, verbose: bool = False, device=None,
         bridges = create_bridges(graph, sequences, anchors, verbose, dev)
         bridge_count = len(bridges)
         bridge_depth = float(len(sequences))
-        conflicting = determine_ambiguity(bridges)
+        with substage("resolve-ambiguity"):
+            conflicting = determine_ambiguity(bridges)
     print_bridges(bridges, verbose)
 
     log.section_header("Applying unique bridges")
@@ -350,19 +360,22 @@ def resolve(cluster_dir, verbose: bool = False, device=None,
                     "consentigs.")
     with stage_timer("resolve/apply"):
         apply_bridges(graph, bridges, bridge_depth)
-        graph.save_gfa(cluster_dir / "3_bridged.gfa", [])
+        with substage("resolve-save"):
+            graph.save_gfa(cluster_dir / "3_bridged.gfa", [])
         merge_after_bridging(graph)
-        graph.save_gfa(cluster_dir / "4_merged.gfa", [])
+        with substage("resolve-save"):
+            graph.save_gfa(cluster_dir / "4_merged.gfa", [])
 
         cull_count = cull_ambiguity(bridges, verbose)
         if cull_count > 0:
             # the bridges were applied to the graph in hand: start again
             # from the file's
-            if gfa_lines is None:
-                gfa_lines = load_file_lines(trimmed_gfa)
-            graph, _ = UnitigGraph.from_gfa_lines(gfa_lines)
-            for num in anchors:
-                graph.index[num].unitig_type = UnitigType.ANCHOR
+            with substage("resolve-reload"):
+                if gfa_lines is None:
+                    gfa_lines = load_file_lines(trimmed_gfa)
+                graph, _ = UnitigGraph.from_gfa_lines(gfa_lines)
+                for num in anchors:
+                    graph.index[num].unitig_type = UnitigType.ANCHOR
             log.section_header("Applying final bridges")
             log.explanation("Now that conflicting bridges have been removed, bridges are "
                             "applied one more time to create the final graph.")
@@ -373,9 +386,11 @@ def resolve(cluster_dir, verbose: bool = False, device=None,
             log.message()
 
         final_gfa = cluster_dir / "5_final.gfa"
-        graph.save_gfa(final_gfa, [], use_other_colour=True)
-    qc.resolve_qc(cluster_dir.name, len(anchors), bridges, conflicting,
-                  cull_count)
+        with substage("resolve-save"):
+            graph.save_gfa(final_gfa, [], use_other_colour=True)
+    with substage("resolve-qc"):
+        qc.resolve_qc(cluster_dir.name, len(anchors), bridges, conflicting,
+                      cull_count)
     ledger.record_stage("resolve", inputs=[trimmed_gfa],
                         outputs=[cluster_dir / "3_bridged.gfa",
                                  cluster_dir / "4_merged.gfa", final_gfa],

@@ -33,7 +33,7 @@ from ..ops.align import (GAP, AlignmentPiece, Weights, find_midpoint,
 from ..utils import (check_threads, log, mad as mad_fn, median,
                      quit_with_error, reverse_signed_path)
 from ..utils.pool import pool_map
-from ..utils.timing import stage_timer
+from ..utils.timing import stage_timer, substage
 
 TrimResult = Optional[Tuple[List[int], int]]
 # (seq_id, kind) -> the decoded alignment pieces, [] where there is none;
@@ -46,14 +46,17 @@ def overlap_screen(jobs, min_identity: float, max_unitigs: int,
     """{key: (path_a, path_b, weights, skip_diagonal)} → {key: pieces}: the
     jobs the exact host screen clears get [], the rest run through one
     batched device DP and carry their decoded pieces."""
-    keys = [key for key, job in jobs.items()
-            if overlap_may_be_positive(job, max_unitigs)]
+    with substage("trim-overlap-screen"):
+        keys = [key for key, job in jobs.items()
+                if overlap_may_be_positive(job, max_unitigs)]
     alignments: Alignments = {key: [] for key in jobs}
-    alignments.update(zip(keys, overlap_tracebacks_batch(
-        [jobs[key] for key in keys], max_unitigs, min_identity, device)))
+    with substage("trim-overlap-align"):
+        alignments.update(zip(keys, overlap_tracebacks_batch(
+            [jobs[key] for key in keys], max_unitigs, min_identity, device)))
     return alignments
 
 
+@substage("trim-overlap-jobs")
 def overlap_jobs(paths: Dict[int, List[int]], weights: Weights
                  ) -> Dict[Tuple[int, str], tuple]:
     """The first round's three DP jobs of each path (reference
@@ -105,22 +108,25 @@ def trim(cluster_dir, min_identity: float = 0.75, max_unitigs: int = 5000,
                     "(can occur with circular sequences) and hairpin overlaps (can occur "
                     "with linear sequences).")
     with stage_timer("trim/load"):
-        graph, sequences = preloaded if preloaded is not None else \
-            UnitigGraph.from_gfa_file(untrimmed_gfa)
-        graph.print_basic_graph_info()
-        # dense number -> length array: scalar indexing works like a dict
-        max_num = max((u.number for u in graph.unitigs), default=0)
-        weights = np.zeros(max_num + 1, dtype=np.int64)
-        for u in graph.unitigs:
-            weights[u.number] = u.length()
-        # one path query serves both trimming passes (the graph is unchanged
-        # until choose_trim_type applies the results)
-        all_paths = graph.get_unitig_paths_for_sequences(
-            [s.id for s in sequences]) if max_unitigs else {}
+        with substage("trim-load"):
+            graph, sequences = preloaded if preloaded is not None else \
+                UnitigGraph.from_gfa_file(untrimmed_gfa)
+            graph.print_basic_graph_info()
+        with substage("trim-paths"):
+            # dense number -> length array: scalar indexing works like a dict
+            max_num = max((u.number for u in graph.unitigs), default=0)
+            weights = np.zeros(max_num + 1, dtype=np.int64)
+            for u in graph.unitigs:
+                weights[u.number] = u.length()
+            # one path query serves both trimming passes (the graph is
+            # unchanged until choose_trim_type applies the results)
+            all_paths = graph.get_unitig_paths_for_sequences(
+                [s.id for s in sequences]) if max_unitigs else {}
     orig_lengths = {s.id: s.length for s in sequences}
     with stage_timer("trim/overlaps"):
-        paths = {seq_id: [n if s else -n for n, s in path]
-                 for seq_id, path in all_paths.items()}
+        with substage("trim-signed-paths"):
+            paths = {seq_id: [n if s else -n for n, s in path]
+                     for seq_id, path in all_paths.items()}
         if alignments is None:
             alignments = overlap_screen(overlap_jobs(paths, weights),
                                         min_identity, max_unitigs, dev)
@@ -141,11 +147,13 @@ def trim(cluster_dir, min_identity: float = 0.75, max_unitigs: int = 5000,
         sequences = exclude_outliers_in_length(graph, sequences, mad)
         excluded_ids = pre_exclude_ids - {s.id for s in sequences}
         clean_up_graph(graph, sequences)
-        graph.save_gfa(trimmed_gfa, sequences)
-        TrimmedClusterMetrics.new(
-            [s.length for s in sequences]).save_to_yaml(trimmed_yaml)
-    qc.trim_qc(cluster_dir.name, orig_lengths, se_count, hp_count, chosen,
-               sequences, excluded_ids)
+        with substage("trim-save"):
+            graph.save_gfa(trimmed_gfa, sequences)
+            TrimmedClusterMetrics.new(
+                [s.length for s in sequences]).save_to_yaml(trimmed_yaml)
+    with substage("trim-qc"):
+        qc.trim_qc(cluster_dir.name, orig_lengths, se_count, hp_count,
+                   chosen, sequences, excluded_ids)
     ledger.record_stage("trim", inputs=[untrimmed_gfa],
                         outputs=[trimmed_gfa, trimmed_yaml],
                         cluster=cluster_dir.name)
@@ -155,6 +163,7 @@ def trim(cluster_dir, min_identity: float = 0.75, max_unitigs: int = 5000,
     return graph, sequences
 
 
+@substage("trim-start-end")
 def trim_start_end_overlap(sequences: List[Sequence], weights: Weights,
                            max_unitigs: int, paths: Dict[int, List[int]],
                            alignments: Alignments, threads: int = 1
@@ -181,6 +190,7 @@ def trim_start_end_overlap(sequences: List[Sequence], weights: Weights,
     return results
 
 
+@substage("trim-hairpin")
 def trim_hairpin_overlap(sequences: List[Sequence], weights: Weights,
                          max_unitigs: int, paths: Dict[int, List[int]],
                          alignments: Alignments, min_identity: float,
@@ -228,6 +238,7 @@ def trim_hairpin_overlap(sequences: List[Sequence], weights: Weights,
     return results
 
 
+@substage("trim-choose-type")
 def choose_trim_type(start_end_results: List[TrimResult],
                      hairpin_results: List[TrimResult], graph: UnitigGraph,
                      sequences: List[Sequence]) -> List[Sequence]:
@@ -256,6 +267,7 @@ def choose_trim_type(start_end_results: List[TrimResult],
     return trimmed_sequences
 
 
+@substage("trim-exclude-outliers")
 def exclude_outliers_in_length(graph: UnitigGraph, sequences: List[Sequence],
                                mad_threshold: float) -> List[Sequence]:
     """Exclude sequences outside median ± mad_threshold·MAD
@@ -284,6 +296,7 @@ def exclude_outliers_in_length(graph: UnitigGraph, sequences: List[Sequence],
     return kept
 
 
+@substage("trim-clean-up")
 def clean_up_graph(graph: UnitigGraph, sequences: List[Sequence]) -> None:
     """Recalculate depths, drop zero-depth unitigs, merge linear paths and
     renumber (reference trim.rs:260-269)."""

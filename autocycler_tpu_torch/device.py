@@ -26,11 +26,10 @@ JAX package is: :func:`fold_records`, called once where a run ends (the
 CLI, before its run dir is written; the serve daemon, after each job,
 before the job's run dir), waits for the records' end events and writes
 their seconds into the metrics registry under the JAX package's names:
-``autocycler_device_seconds_total``, ``autocycler_device_dispatches_total``,
-``autocycler_device_dispatch_seconds`` (by ``what``) and
-``autocycler_device_kernel_seconds`` (by ``kernel`` and ``phase``, first
-or steady). On the card the seconds are the CUDA events'; off it they are
-the host's around the block (the work is synchronous there). The JAX
+``autocycler_device_seconds_total``, ``autocycler_device_dispatches_total``
+and ``autocycler_device_kernel_seconds`` (by ``kernel`` and ``phase``,
+first or steady). On the card the seconds are the CUDA events'; off it
+they are the host's around the block (the work is synchronous there). The JAX
 package counts host-observed seconds on every device. A block that raises
 counts once in ``autocycler_device_failures_total`` and sets
 ``autocycler_device_failure_last`` (``utils.timing.record_device_failure``),
@@ -42,6 +41,12 @@ work (``flops``, ``bytes_moved``): the fold adds it to
 and phase, beside the seconds it divides (``ops.mfu.kernel_rates``). With
 ``AUTOCYCLER_XPROF`` set, the first launches, dispatches and blocks of
 each name run under ``torch.profiler`` (``utils.timing.xprof_capture``).
+
+Each copy of a device tensor to the host on the hand-over path goes
+through :func:`to_host`, which counts its bytes and copies by the ``site``
+that asked for it (``autocycler_device_to_host_bytes_total`` and
+``autocycler_device_to_host_copies_total``). Small reads that steer the
+host (``.item()``, ``.tolist()`` of a few values) are left out.
 
 The serve daemon's device token (``utils.timing.enable_device_token``) is
 held across each launch and each dispatch, and across compress's
@@ -81,11 +86,15 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from .obs import metrics_registry, trace
 from .utils import quit_with_error, timing
 from .utils.knobs import knob_float, knob_int
+
+TO_HOST_BYTES = "autocycler_device_to_host_bytes_total"
+TO_HOST_COPIES = "autocycler_device_to_host_copies_total"
 
 # kernel name -> launches since the last reset_counts()
 launches: Dict[str, int] = {"sortnet_pack_rank": 0, "dotplot_match_grid": 0,
@@ -828,8 +837,6 @@ def fold_records(owner=_ANY, drop: bool = False) -> int:
                              "it)")
         reg.counter_inc(timing.DEVICE_DISPATCHES, 1,
                         help="device dispatch count")
-        reg.observe(timing.DEVICE_DISPATCH_HIST, seconds,
-                    help="per-dispatch device seconds", what=r["what"])
         reg.observe(timing.DEVICE_KERNEL_HIST, seconds,
                     help="per-kernel dispatch seconds, split first call "
                          "vs steady state",
@@ -855,6 +862,38 @@ def fold_records(owner=_ANY, drop: bool = False) -> int:
                     source[:] = [x for x in source
                                  if id(x) not in gone[id(source)]]
     return len(mine)
+
+
+def to_host(t: torch.Tensor, site: str, dtype=None) -> np.ndarray:
+    """``t`` as a host numpy array (``.cpu().numpy()``, then ``astype(dtype,
+    copy=False)`` when ``dtype`` is given), counting ``t``'s bytes and one
+    copy under ``site`` in the registry. A tensor already on the host is
+    counted alike: the count is what the site asks the device for.
+
+    The hand-over path's copies all come here: the stream's pass 1
+    (``stream-bin``) and its stitch (``stream-stitch``), the in-memory
+    grouping (``k-mer grouping``, ``gram grouping``, ``adjacency``,
+    ``group_windows``, ``radix partition``), the end repair (``repair``),
+    the chains (``chains``), cluster's product and sketches (``cluster
+    distance matmul``, ``sketch``, ``cluster_sketch_grid``) and the DPs of
+    trim and resolve (``trim_overlap_dp``, ``resolve_medoid_dp``). Left
+    out, being off that path: ``dotplot``'s canvas and ``parallel/``'s
+    batch and fleet contractions."""
+    out = t.cpu().numpy()
+    reg = metrics_registry.registry()
+    reg.counter_inc(TO_HOST_BYTES, float(t.numel() * t.element_size()),
+                    help="bytes of device tensors copied to the host, by "
+                         "the site that copied them", site=site)
+    reg.counter_inc(TO_HOST_COPIES, 1,
+                    help="copies of device tensors to the host, by site",
+                    site=site)
+    return out if dtype is None else out.astype(dtype, copy=False)
+
+
+def to_host_bytes() -> float:
+    """Bytes copied through :func:`to_host` so far, all sites."""
+    return sum(metrics_registry.registry().labeled(TO_HOST_BYTES,
+                                                   "site").values())
 
 
 def reset_counts() -> None:

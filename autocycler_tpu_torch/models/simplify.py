@@ -25,6 +25,7 @@ from typing import List, Set, Tuple
 import numpy as np
 
 from ..utils import FORWARD, REVERSE
+from ..utils.timing import substage
 from .sequence import Sequence
 from .unitig import Unitig, UnitigStrand, UnitigType
 from .unitig_graph import UnitigGraph
@@ -38,14 +39,18 @@ def simplify_structure(graph: UnitigGraph, seqs: List[Sequence]) -> None:
     unitigs never adds, removes or reorders path entries (and links are
     untouched), so the sets are invariant across iterations — the reference
     recomputes them each sweep with the same result."""
-    fixed = get_fixed_unitig_starts_and_ends(graph, seqs)
-    candidates = None  # first sweep visits everything
-    while True:
-        shifted, affected = _expand_repeats_pass(graph, seqs, fixed, candidates)
-        if shifted == 0:
-            break
-        candidates = affected
-    graph.renumber_unitigs()
+    with substage("simplify-fixed"):
+        fixed = get_fixed_unitig_starts_and_ends(graph, seqs)
+    with substage("simplify-expand"):
+        candidates = None  # first sweep visits everything
+        while True:
+            shifted, affected = _expand_repeats_pass(graph, seqs, fixed,
+                                                     candidates)
+            if shifted == 0:
+                break
+            candidates = affected
+    with substage("simplify-renumber"):
+        graph.renumber_unitigs()
 
 
 def expand_repeats(graph: UnitigGraph, seqs: List[Sequence], fixed=None) -> int:

@@ -9,11 +9,12 @@ per-stage record of input → output artifact hashes. Two runs whose ledgers
 match inputs, versions and knobs should match artifact hashes; when they
 don't, the ledger says which stage diverged.
 
-Collection is gated on an active trace run (:func:`..obs.trace
-.tracing_active`): hashing artifacts costs real I/O, and the ledger is only
-written into a run directory anyway. The CLI resets the ledger when it
-starts a run and writes ``ledger.json`` atomically at run end, next to
-``trace.jsonl`` and ``qc_report.json``.
+Collection is gated on an active trace run that has a directory
+(:func:`..obs.trace.trace_dir`): hashing artifacts costs real I/O, and the
+ledger is only written into a run directory anyway, so a run kept in
+memory hashes nothing. The hashing is timed as the ``ledger`` substage.
+The CLI resets the ledger when it starts a run and writes ``ledger.json``
+atomically at run end, next to ``trace.jsonl`` and ``qc_report.json``.
 
 Keys that differ from the JAX package's ledger, because the port runs
 another stack:
@@ -45,6 +46,7 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional
 
+from ..utils.timing import substage
 from . import metrics_registry, trace
 from .qc import current_scope
 
@@ -100,28 +102,35 @@ def artifact_hash(path) -> Optional[dict]:
 
 def record_inputs(paths) -> None:
     """Hash run input files (assembly FASTAs) into the ledger's top-level
-    input table. No-op without an active trace run; never raises."""
-    if not trace.tracing_active():
+    input table. No-op without an active trace run that has a directory;
+    never raises."""
+    if trace.trace_dir() is None:
         return
-    for path in paths:
-        digest = artifact_hash(path)
-        if digest is None:
-            continue
-        iso = current_scope()
-        if iso:
-            digest = dict(digest, isolate=iso)
-        with _lock:
-            _inputs[(iso, str(path))] = digest
+    with substage("ledger"):
+        for path in paths:
+            digest = artifact_hash(path)
+            if digest is None:
+                continue
+            iso = current_scope()
+            if iso:
+                digest = dict(digest, isolate=iso)
+            with _lock:
+                _inputs[(iso, str(path))] = digest
 
 
 def record_stage(stage: str, inputs=(), outputs=(),
                  cluster: Optional[str] = None, **extra) -> Optional[dict]:
     """One stage's input → output artifact hashes. Missing/unreadable files
     are skipped silently (a stage may legitimately not write an optional
-    artifact). No-op without an active trace run."""
-    if not trace.tracing_active():
+    artifact). No-op without an active trace run that has a directory."""
+    if trace.trace_dir() is None:
         return None
+    with substage("ledger"):
+        return _record_stage(stage, inputs, outputs, cluster, extra)
 
+
+def _record_stage(stage: str, inputs, outputs, cluster: Optional[str],
+                  extra: dict) -> dict:
     def table(paths) -> Dict[str, dict]:
         out = {}
         for path in paths:

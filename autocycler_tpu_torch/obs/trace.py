@@ -16,6 +16,14 @@ command, stage, substage and device granularity — to
 Parent/child nesting is tracked per thread (a span opened inside a pool
 worker roots its own lane, as the Chrome viewer renders it).
 
+Each span keeps ``ts``/``dur`` (seconds from the run's start) and, beside
+them, ``t0_ns``/``t1_ns``: its start and end in integer nanoseconds since
+the Unix epoch, the clock ``time.time_ns()`` reads and ``torch.profiler``
+stamps its host and device events with. A span reads only
+``perf_counter_ns()``; one (``perf_counter_ns``, ``time_ns``) pair taken as
+the run opens maps it onto that clock, so a span lines up with the
+profiler's kernels and copies of the same interval.
+
 Two kinds of run can be active at once:
 
 - the process-wide run (``start_run``/``finish_run``): the CLI's; at most
@@ -26,6 +34,13 @@ Two kinds of run can be active at once:
   concurrent jobs stream N disjoint ``trace.jsonl`` files from one
   process. A thread with no bound run falls back to the process-wide run,
   then, when exactly one scoped run is open, to that run.
+
+A scoped run opened with no directory (``open_run(None)``) is kept in
+memory: it opens no file, writes nothing per span, and :func:`close_run`
+returns its spans and writes nothing. :func:`trace_dir` is None inside it,
+so the run record's file-bound hooks (the ledger's hashing) stay off: a
+benchmark can hold a program's spans for a measured window without adding
+the I/O a directory run pays.
 
 The disabled path is free: with no active run, :func:`span` returns a
 shared no-op context manager — no I/O, no per-call state — so tracing stays
@@ -61,14 +76,19 @@ _local = threading.local()
 
 
 class _Run:
-    __slots__ = ("dir", "file", "t0_perf", "t0_epoch", "name", "spans",
-                 "next_id", "dropped", "tids", "lock", "closed")
+    __slots__ = ("dir", "file", "t0_perf_ns", "epoch_offset_ns", "t0_epoch",
+                 "name", "spans", "next_id", "dropped", "tids", "lock",
+                 "closed")
 
-    def __init__(self, trace_dir: Path, name: str):
+    def __init__(self, trace_dir: Optional[Path], name: str):
         self.dir = trace_dir
-        self.file = open(trace_dir / TRACE_JSONL, "w")
-        self.t0_perf = time.perf_counter()
-        self.t0_epoch = time.time()
+        self.file = (open(trace_dir / TRACE_JSONL, "w")
+                     if trace_dir is not None else None)
+        self.t0_perf_ns = time.perf_counter_ns()
+        t0_epoch_ns = time.time_ns()
+        # perf_counter_ns() + this = nanoseconds since the epoch
+        self.epoch_offset_ns = t0_epoch_ns - self.t0_perf_ns
+        self.t0_epoch = t0_epoch_ns / 1e9
         self.name = name
         self.spans: List[dict] = []
         self.next_id = 1
@@ -161,8 +181,7 @@ def _stack(run: _Run) -> list:
 
 
 class _Span:
-    __slots__ = ("name", "cat", "attrs", "id", "parent", "t0_perf", "ts",
-                 "run")
+    __slots__ = ("name", "cat", "attrs", "id", "parent", "p0_ns", "run")
 
     def __init__(self, name: str, cat: str, attrs: dict):
         self.name = name
@@ -181,15 +200,14 @@ class _Span:
         with run.lock:
             self.id = run.next_id
             run.next_id += 1
-        self.t0_perf = time.perf_counter()
-        self.ts = self.t0_perf - run.t0_perf
+        self.p0_ns = time.perf_counter_ns()
         stack.append(self)
         return self
 
     def __exit__(self, exc_type, exc, tb):
         if self.id is None:
             return False
-        dur = time.perf_counter() - self.t0_perf
+        p1_ns = time.perf_counter_ns()
         run = self.run
         stacks = getattr(_local, "stacks", None)
         stack = stacks.get(id(run)) if stacks else None
@@ -199,14 +217,18 @@ class _Span:
                 del stacks[id(run)]
         record = {"type": "span", "name": self.name, "cat": self.cat,
                   "id": self.id, "parent": self.parent,
-                  "ts": round(self.ts, 6), "dur": round(dur, 6)}
+                  "ts": round((self.p0_ns - run.t0_perf_ns) / 1e9, 6),
+                  "dur": round((p1_ns - self.p0_ns) / 1e9, 6),
+                  "t0_ns": self.p0_ns + run.epoch_offset_ns,
+                  "t1_ns": p1_ns + run.epoch_offset_ns}
         if self.attrs:
             record["attrs"] = self.attrs
         if exc_type is not None:
             record["error"] = exc_type.__name__
-        # top-level spans carry a memory sample: cheap (rusage, /proc and,
-        # once CUDA is up, the caching allocator's count)
-        if self.parent is None and self.cat in ("command", "stage", "run"):
+        # top-level spans of a directory run carry a memory sample: cheap
+        # (rusage, /proc and, once CUDA is up, the caching allocator's count)
+        if (self.parent is None and run.file is not None
+                and self.cat in ("command", "stage", "run")):
             mem = obs_memory.memory_sample()
             if mem:
                 record["mem"] = mem
@@ -219,6 +241,8 @@ class _Span:
                 run.spans.append(record)
             else:
                 run.dropped += 1
+            if run.file is None:
+                return False
             try:
                 run.file.write(json.dumps(record, default=str) + "\n")
             except (OSError, ValueError):
@@ -237,8 +261,9 @@ def span(name: str, cat: str = "stage", **attrs):
     """A context manager timing one nested unit of work.
 
     With no active run this is the shared :data:`NOOP_SPAN`. With a run
-    active it records start offset, duration, parent span (per-thread
-    nesting), category and ``attrs`` into the run's span stream."""
+    active it records start offset and duration, its absolute start and end
+    (``t0_ns``/``t1_ns``), parent span (per-thread nesting), category and
+    ``attrs`` into the run's span stream."""
     if _active_run() is None:
         return NOOP_SPAN
     return _Span(name, cat, attrs)
@@ -258,6 +283,7 @@ def _create_run(trace_dir, name: str, trace_id: Optional[str] = None) -> _Run:
     trace_dir.mkdir(parents=True, exist_ok=True)
     run = _Run(trace_dir, name)
     header = {"type": "run", "name": name, "t0_epoch": run.t0_epoch,
+              "t0_ns": run.t0_perf_ns + run.epoch_offset_ns,
               "pid": os.getpid(), "argv": list(sys.argv)}
     if trace_id:
         # cross-process correlation id (X-Autocycler-Trace)
@@ -286,8 +312,12 @@ def open_run(trace_dir, name: str = "run",
     claim the process-wide slot, so any number can be open concurrently
     (one per serve job). Threads record into it via :class:`bind_run`;
     finish it with :func:`close_run`. ``trace_id`` (a client correlation
-    id) lands in the run header."""
-    run = _create_run(trace_dir, name, trace_id=trace_id)
+    id) lands in the run header. With ``trace_dir`` None the run is kept
+    in memory: no file is opened, and nothing is written."""
+    if trace_dir is None:
+        run = _Run(None, name)
+    else:
+        run = _create_run(trace_dir, name, trace_id=trace_id)
     with _lock:
         _scoped_runs.append(run)
     return run
@@ -313,7 +343,7 @@ def _finalize(run: _Run) -> Path:
     """Write the finish record, the Chrome trace and the metrics snapshot
     (JSON + Prometheus) for a run already removed from the active slots.
     Never raises on I/O problems — telemetry must not fail the pipeline."""
-    wall = time.perf_counter() - run.t0_perf
+    wall = (time.perf_counter_ns() - run.t0_perf_ns) / 1e9
     footer = {"type": "finish", "wall": round(wall, 6),
               "spans": len(run.spans) + run.dropped, "dropped": run.dropped,
               "mem": obs_memory.memory_sample()}
@@ -349,9 +379,10 @@ def finish_run() -> Optional[Path]:
     return _finalize(run)
 
 
-def close_run(run: _Run) -> Optional[Path]:
+def close_run(run: _Run):
     """Close a scoped run opened with :func:`open_run`. Returns its
-    directory (None when already closed). In-flight spans of other threads
+    directory, or for an in-memory run its span records, which it writes
+    nowhere (None when already closed). In-flight spans of other threads
     observe ``closed`` under the run lock and drop their records."""
     with _lock:
         if run in _scoped_runs:
@@ -360,6 +391,8 @@ def close_run(run: _Run) -> Optional[Path]:
         if run.closed:
             return None
         run.closed = True
+    if run.dir is None:
+        return run.spans
     return _finalize(run)
 
 
@@ -373,8 +406,8 @@ def write_metrics_file(path) -> None:
 
 def _write_chrome_trace(path: Path, spans: List[dict], name: str) -> None:
     """Chrome trace_event JSON: one complete ("ph": "X") event per span,
-    timestamps/durations in microseconds, thread lanes from the per-run
-    small thread ids."""
+    timestamps/durations in microseconds, the absolute ``t0_ns``/``t1_ns``
+    among its args, thread lanes from the per-run small thread ids."""
     pid = os.getpid()
     events = [{"name": "process_name", "ph": "M", "pid": pid, "tid": 0,
                "args": {"name": f"autocycler {name}"}}]
@@ -383,7 +416,8 @@ def _write_chrome_trace(path: Path, spans: List[dict], name: str) -> None:
             "name": s["name"], "cat": s["cat"], "ph": "X",
             "ts": round(s["ts"] * 1e6, 3), "dur": round(s["dur"] * 1e6, 3),
             "pid": pid, "tid": s.get("tid", 0),
-            "args": dict(s.get("attrs", {}),
+            "args": dict(s.get("attrs", {}), t0_ns=s["t0_ns"],
+                         t1_ns=s["t1_ns"],
                          **({"mem": s["mem"]} if "mem" in s else {})),
         })
     path.write_text(json.dumps({"traceEvents": events,
@@ -400,6 +434,8 @@ def abort_run() -> None:
         _scoped_runs.clear()
     for run in runs:
         run.closed = True
+        if run.file is None:
+            continue
         try:
             run.file.close()
         except OSError:

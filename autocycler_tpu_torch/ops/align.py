@@ -31,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..device import dp_dispatch
+from ..device import dp_dispatch, to_host
 
 # weights: unitig number -> length, as a dict or a dense number-indexed array
 Weights = Union[Dict[int, int], np.ndarray]
@@ -302,8 +302,8 @@ def overlap_tracebacks_batch(jobs, max_unitigs: int, min_identity: float,
                          cells=P * K * K,
                          bits_bytes=K * P * -(-K // WORD_BITS) * (WORD_BITS // 8)):
             edges, bits = overlap_screen_traceback(arrs)
-            edges = edges.cpu().numpy()
-            bits = bits.cpu().numpy()
+            edges = to_host(edges, "trim_overlap_dp")
+            bits = to_host(bits, "trim_overlap_dp")
         for p, i in enumerate(chunk):
             path_a, path_b, weights, _ = jobs[i]
             results[i] = decode_overlap_alignment(
@@ -379,5 +379,5 @@ def global_alignment_distance_batch(pairs, weights: Weights,
             row = torch.cat([left, run[:, 1:] + Wb_t[:, 1:]], dim=1)
             prev = torch.where((i < n_t)[:, None], row, prev)
         out = prev.gather(1, torch.from_numpy(m_len).to(dev)[:, None])[:, 0]
-        return out.cpu().numpy()
+        return to_host(out, "resolve_medoid_dp")
 

@@ -33,7 +33,7 @@ from typing import List
 import numpy as np
 import torch
 
-from ..device import device_work
+from ..device import device_work, to_host
 from ..utils.timing import substage
 from .kmers import KmerIndex
 
@@ -110,9 +110,9 @@ def chains_device(next_int: np.ndarray, device: torch.device):
     # break each cycle at its representative: dropping the rep's predecessor
     # is sufficient, the re-doubling only consults prev
     head, rank = double_heads(torch.where(rep, -1, prev))
-    head = head.cpu().numpy()
-    rank = rank.cpu().numpy()
-    in_cycle = in_cycle.cpu().numpy()
+    head = to_host(head, "chains")
+    rank = to_host(rank, "chains")
+    in_cycle = to_host(in_cycle, "chains")
 
     is_head = head == np.arange(U)
     cid_of_head = np.cumsum(is_head) - 1
@@ -144,48 +144,53 @@ def build_chains(index: KmerIndex) -> Chains:
             members, chain_off, chain_is_cycle = chains_device(
                 next_int, index.device)
 
-    C = len(chain_off) - 1
-    sizes = np.diff(chain_off)
-    # chain index of every node (members lists each node exactly once)
-    node_chain = np.empty(U, np.int64)
-    node_chain[members] = np.repeat(np.arange(C, dtype=np.int64), sizes)
-    chain_head = members[chain_off[:-1]]
+    with substage("chain-emit"):
+        C = len(chain_off) - 1
+        sizes = np.diff(chain_off)
+        # chain index of every node (members lists each node exactly once)
+        node_chain = np.empty(U, np.int64)
+        node_chain[members] = np.repeat(np.arange(C, dtype=np.int64), sizes)
+        chain_head = members[chain_off[:-1]]
 
-    # per-chain minima, own and mirror
-    min_own = np.minimum.reduceat(members, chain_off[:-1]) if C else \
-        np.zeros(0, np.int64)
-    min_mirror = np.minimum.reduceat(index.rev_kid[members], chain_off[:-1]) \
-        if C else np.zeros(0, np.int64)
-    mirror_chain = node_chain[index.rev_kid[chain_head]]
-    self_mirror = mirror_chain == np.arange(C)
+        # per-chain minima, own and mirror
+        min_own = np.minimum.reduceat(members, chain_off[:-1]) if C else \
+            np.zeros(0, np.int64)
+        min_mirror = np.minimum.reduceat(index.rev_kid[members],
+                                         chain_off[:-1]) \
+            if C else np.zeros(0, np.int64)
+        mirror_chain = node_chain[index.rev_kid[chain_head]]
+        self_mirror = mirror_chain == np.arange(C)
 
-    # Emit chains vectorised: of each mirror pair keep the chain holding the
-    # smaller minimum (ties == self-mirror, handled separately below).
-    normal_keep = ~self_mirror & (min_own <= min_mirror)
-    keep_node = np.repeat(normal_keep, sizes)
-    flat = members[keep_node]
-    kept_sizes = sizes[normal_keep]
-    off = np.concatenate([[0], np.cumsum(kept_sizes)]).astype(np.int64)
-    out_is_cycle = list(chain_is_cycle[normal_keep])
+        # Emit chains vectorised: of each mirror pair keep the chain holding
+        # the smaller minimum (ties == self-mirror, handled separately below).
+        normal_keep = ~self_mirror & (min_own <= min_mirror)
+        keep_node = np.repeat(normal_keep, sizes)
+        flat = members[keep_node]
+        kept_sizes = sizes[normal_keep]
+        off = np.concatenate([[0], np.cumsum(kept_sizes)]).astype(np.int64)
+        out_is_cycle = list(chain_is_cycle[normal_keep])
 
-    # self-mirror chains are rare; the literal per-chain handling only runs
-    # for them (appended after the vectorised bulk — chain order is
-    # irrelevant, renumbering happens downstream)
-    extra_members: List[np.ndarray] = []
-    for c in np.flatnonzero(self_mirror):
-        mem = members[chain_off[c]:chain_off[c + 1]]
-        if chain_is_cycle[c]:
-            extra_members.append(_simulate_walk_cycle(index, next_int, mem,
-                                                      int(min_own[c])))
-        else:
-            half = len(mem) // 2
-            pos_of_min = int(np.argmin(mem))
-            extra_members.append(mem[:half] if pos_of_min < half else mem[half:])
-        out_is_cycle.append(False)  # walk results are never full cycles
-    if extra_members:
-        flat = np.concatenate([flat] + extra_members)
-        off = np.concatenate([off, off[-1] + np.cumsum([len(m) for m in extra_members])])
-    return Chains(flat, off.astype(np.int64), np.array(out_is_cycle, dtype=bool))
+        # self-mirror chains are rare; the literal per-chain handling only
+        # runs for them (appended after the vectorised bulk — chain order is
+        # irrelevant, renumbering happens downstream)
+        extra_members: List[np.ndarray] = []
+        for c in np.flatnonzero(self_mirror):
+            mem = members[chain_off[c]:chain_off[c + 1]]
+            if chain_is_cycle[c]:
+                extra_members.append(_simulate_walk_cycle(index, next_int, mem,
+                                                          int(min_own[c])))
+            else:
+                half = len(mem) // 2
+                pos_of_min = int(np.argmin(mem))
+                extra_members.append(mem[:half] if pos_of_min < half
+                                     else mem[half:])
+            out_is_cycle.append(False)  # walk results are never full cycles
+        if extra_members:
+            flat = np.concatenate([flat] + extra_members)
+            off = np.concatenate(
+                [off, off[-1] + np.cumsum([len(m) for m in extra_members])])
+        return Chains(flat, off.astype(np.int64),
+                      np.array(out_is_cycle, dtype=bool))
 
 
 def _simulate_walk_cycle(index: KmerIndex, next_int: np.ndarray,

@@ -29,7 +29,8 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from ..device import device_work, resolve_device
+from ..device import device_work, resolve_device, to_host
+from ..utils.timing import substage
 
 EXACT_FLOAT64 = 2**53
 
@@ -79,11 +80,14 @@ def intersections(M: np.ndarray, w: np.ndarray, device=None) -> np.ndarray:
                      flops=2.0 * S * U * S):
         mw = torch.from_numpy(Mw).to(dev, torch.float64)
         m = torch.from_numpy(M).to(dev, torch.float64)
-        return torch.matmul(mw, m.T).cpu().numpy().astype(np.int64)
+        return to_host(torch.matmul(mw, m.T), "cluster distance matmul",
+                       np.int64)
 
 
 def pairwise_contig_distances(graph, sequences, device=None
                               ) -> Dict[Tuple[int, int], float]:
     """Distances keyed by (seq_a.id, seq_b.id), reference-shaped."""
-    M, w, ids = membership_matrix(graph, sequences)
-    return intersections_to_distances(intersections(M, w, device), ids)
+    with substage("cluster-paths"):
+        M, w, ids = membership_matrix(graph, sequences)
+    with substage("cluster-distance-product"):
+        return intersections_to_distances(intersections(M, w, device), ids)

@@ -22,7 +22,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import resolve_device, to_host
 from ..models import Sequence
 from ..utils import reverse_complement_bytes
 from .kmers import grouping_mode, radix_rank, rank_windows, run_starts
@@ -85,10 +85,10 @@ def _matches_by_query_grouped(codes, text_off, text_len, h, q_starts,
     wtext = torch.searchsorted(woff_d, sel, right=True) - 1
     wpos = sel - woff_d[wtext]
 
-    wtext = wtext.cpu().numpy()
-    wpos = wpos.cpu().numpy()
+    wtext = to_host(wtext, "repair")
+    wpos = to_host(wpos, "repair")
     bounds = np.zeros(Q + 1, np.int64)
-    np.cumsum(counts.cpu().numpy(), out=bounds[1:])
+    np.cumsum(to_host(counts, "repair"), out=bounds[1:])
     return [(wtext[bounds[q]:bounds[q + 1]], wpos[bounds[q]:bounds[q + 1]])
             for q in range(Q)]
 

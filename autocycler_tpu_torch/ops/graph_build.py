@@ -90,34 +90,36 @@ def unitig_graph_from_chains(index: KmerIndex, chains: Chains) -> UnitigGraph:
 
     # last byte of each unique k-mer's window (for chain sequence assembly);
     # any occurrence's bytes are the k-mer itself, so the representative works
-    last_byte = index.buf[index.rep_byte + k - 1]
+    with substage("chain-seqs"):
+        last_byte = index.buf[index.rep_byte + k - 1]
 
-    C = chains.count
-    members_all = chains.members
-    chain_off = chains.chain_off
-    sizes = np.diff(chain_off)
-    heads = members_all[chain_off[:-1]] if C else np.zeros(0, np.int64)
-    tails = members_all[chain_off[1:] - 1] if C else np.zeros(0, np.int64)
-    rev_tails = index.rev_kid[tails].astype(np.int64) if C else heads
+        C = chains.count
+        members_all = chains.members
+        chain_off = chains.chain_off
+        sizes = np.diff(chain_off)
+        heads = members_all[chain_off[:-1]] if C else np.zeros(0, np.int64)
+        tails = members_all[chain_off[1:] - 1] if C else np.zeros(0, np.int64)
+        rev_tails = index.rev_kid[tails].astype(np.int64) if C else heads
 
-    # ---- chain sequences, assembled in one pass over all chains ----
-    # untrimmed chain sequence = head k-mer bytes + last byte of each
-    # following k-mer; trimming removes half_k from both ends, so trimmed
-    # byte i of a chain is the head window byte h+i while h+i < k and the
-    # last byte of member i-h after that
-    slot = np.arange(len(members_all), dtype=np.int64)
-    # per-slot chain attributes come from np.repeat (sequential writes) —
-    # measurably cheaper than materialising chain_of_slot and gathering
-    # C-sized arrays through it
-    pos_ic = slot - np.repeat(chain_off[:-1], sizes)
-    from_head = pos_ic <= h
-    head_byte_idx = (np.repeat(index.rep_byte[heads] + h, sizes)
-                     + np.minimum(pos_ic, h))
-    tail_byte = last_byte[members_all[np.maximum(slot - h, 0)]]
-    seq_bytes = np.where(from_head, index.buf[head_byte_idx], tail_byte)
+        # ---- chain sequences, assembled in one pass over all chains ----
+        # untrimmed chain sequence = head k-mer bytes + last byte of each
+        # following k-mer; trimming removes half_k from both ends, so trimmed
+        # byte i of a chain is the head window byte h+i while h+i < k and the
+        # last byte of member i-h after that
+        slot = np.arange(len(members_all), dtype=np.int64)
+        # per-slot chain attributes come from np.repeat (sequential writes) —
+        # measurably cheaper than materialising chain_of_slot and gathering
+        # C-sized arrays through it
+        pos_ic = slot - np.repeat(chain_off[:-1], sizes)
+        from_head = pos_ic <= h
+        head_byte_idx = (np.repeat(index.rep_byte[heads] + h, sizes)
+                         + np.minimum(pos_ic, h))
+        tail_byte = last_byte[members_all[np.maximum(slot - h, 0)]]
+        seq_bytes = np.where(from_head, index.buf[head_byte_idx], tail_byte)
 
-    depths = (np.add.reduceat(index.depth[members_all].astype(np.float64),
-                              chain_off[:-1]) / sizes) if C else np.zeros(0)
+        depths = (np.add.reduceat(
+            index.depth[members_all].astype(np.float64), chain_off[:-1])
+            / sizes) if C else np.zeros(0)
 
     # batched position query for every chain head and reverse-complement
     # tail, in flat SoA form: per-chain PositionArrays are views into the
@@ -183,9 +185,10 @@ def unitig_graph_from_chains(index: KmerIndex, chains: Chains) -> UnitigGraph:
                 a.reverse_next.append(UnitigStrand(b, FORWARD))
                 b.forward_prev.append(UnitigStrand(a, REVERSE))
 
-    graph.build_index()
-    graph.renumber_unitigs()
-    graph.check_links()
+    with substage("graph-index"):
+        graph.build_index()
+        graph.renumber_unitigs()
+        graph.check_links()
     return graph
 
 

@@ -24,15 +24,11 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..device import device_work, dp_dispatch, resolve_device
+from ..device import device_work, dp_dispatch, resolve_device, to_host
 from ..utils.knobs import knob_str
 from ..utils.timing import substage
 from .encode import encode_bytes
 from .sortnet import INT32_MAX, pack_rank
-
-
-def _to_host(t: torch.Tensor, dtype=np.int64) -> np.ndarray:
-    return t.cpu().numpy().astype(dtype, copy=False)
 
 
 def rank_windows(codes: torch.Tensor, starts: torch.Tensor,
@@ -133,8 +129,8 @@ def radix_partition(codes: torch.Tensor, starts: torch.Tensor, k: int,
     key = codes[starts].to(torch.int64)
     for i in range(1, r):
         key = key * 5 + codes[starts + i]
-    cum_total = torch.cumsum(torch.bincount(key, minlength=n_keys),
-                             0).cpu().numpy()
+    cum_total = to_host(torch.cumsum(torch.bincount(key, minlength=n_keys),
+                                     0), "radix partition")
     n_parts = max(1, min(int(n_parts), n_keys))
     targets = (np.arange(1, n_parts) * n) // n_parts
     cut = np.searchsorted(cum_total, targets, side="left")
@@ -261,7 +257,8 @@ def group_windows_full(codes: np.ndarray, starts: np.ndarray, k: int,
     by gid."""
     codes_d, starts_d = _upload(codes, starts, device)
     order, gid_sorted = rank_windows(codes_d, starts_d, k)
-    return _to_host(scatter_gid(order, gid_sorted)), _to_host(order)
+    return (to_host(scatter_gid(order, gid_sorted), "group_windows", np.int64),
+            to_host(order, "group_windows", np.int64))
 
 
 def window_gids(codes: np.ndarray, starts: np.ndarray, k: int,
@@ -276,7 +273,8 @@ def group_windows(codes: np.ndarray, starts: np.ndarray, k: int,
     """(order, gid_sorted) view of :func:`group_windows_full`."""
     codes_d, starts_d = _upload(codes, starts, device)
     order, gid_sorted = rank_windows(codes_d, starts_d, k)
-    return _to_host(order), _to_host(gid_sorted)
+    return (to_host(order, "group_windows", np.int64),
+            to_host(gid_sorted, "group_windows", np.int64))
 
 
 def group_windows_stats(codes: np.ndarray, starts: np.ndarray, k: int,
@@ -286,8 +284,9 @@ def group_windows_stats(codes: np.ndarray, starts: np.ndarray, k: int,
     codes_d, starts_d = _upload(codes, starts, device)
     order, gid_sorted = rank_windows(codes_d, starts_d, k)
     depth, first_occ = segment_stats(order, gid_sorted)
-    return (_to_host(scatter_gid(order, gid_sorted)), _to_host(order),
-            _to_host(depth), _to_host(first_occ))
+    return tuple(to_host(t, "group_windows", np.int64)
+                 for t in (scatter_gid(order, gid_sorted), order, depth,
+                           first_occ))
 
 
 def run_starts(run_start: np.ndarray, run_len: np.ndarray,
@@ -434,38 +433,40 @@ def build_kmer_index(sequences, k: int, device=None,
                 f"half_k={half_k}; rebuild it with Sequence.with_seq(..., "
                 f"{half_k})")
 
-    bufs, fwd_off, rev_off = [], np.zeros(S, np.int64), np.zeros(S, np.int64)
-    total = 0
-    for i, s in enumerate(sequences):
-        fwd_off[i] = total
-        bufs.append(s.forward_seq)
-        total += len(s.forward_seq)
-        rev_off[i] = total
-        bufs.append(s.reverse_seq)
-        total += len(s.reverse_seq)
-    buf = np.concatenate(bufs) if bufs else np.zeros(0, np.uint8)
+    with substage("encode"):
+        bufs = []
+        fwd_off, rev_off = np.zeros(S, np.int64), np.zeros(S, np.int64)
+        total = 0
+        for i, s in enumerate(sequences):
+            fwd_off[i] = total
+            bufs.append(s.forward_seq)
+            total += len(s.forward_seq)
+            rev_off[i] = total
+            bufs.append(s.reverse_seq)
+            total += len(s.reverse_seq)
+        buf = np.concatenate(bufs) if bufs else np.zeros(0, np.uint8)
 
-    occ_off = np.zeros(S, np.int64)
-    if S > 1:
-        occ_off[1:] = np.cumsum(2 * seq_len)[:-1]
-    M = int(2 * seq_len.sum())
-    radix = grouping_mode() == "radix"
-    stream_on = bool(M) and k > 1 and resolve_stream_mode(M, k)
+        occ_off = np.zeros(S, np.int64)
+        if S > 1:
+            occ_off[1:] = np.cumsum(2 * seq_len)[:-1]
+        M = int(2 * seq_len.sum())
+        radix = grouping_mode() == "radix"
+        stream_on = bool(M) and k > 1 and resolve_stream_mode(M, k)
 
-    # per-sequence cached both-strand encodings, in buf's (forward, reverse)
-    # per-sequence layout
-    strand_codes = []
-    for s in sequences:
-        enc = getattr(s, "encoded_strands", None)
-        if enc is not None:
-            fwd_c, rev_c = enc()
-        else:               # duck-typed sequence stand-ins in tests
-            fwd_c = encode_bytes(s.forward_seq)
-            rev_c = encode_bytes(s.reverse_seq)
-        strand_codes.append(fwd_c)
-        strand_codes.append(rev_c)
-    codes = np.concatenate(strand_codes) if strand_codes \
-        else encode_bytes(buf)
+        # per-sequence cached both-strand encodings, in buf's (forward,
+        # reverse) per-sequence layout
+        strand_codes = []
+        for s in sequences:
+            enc = getattr(s, "encoded_strands", None)
+            if enc is not None:
+                fwd_c, rev_c = enc()
+            else:               # duck-typed sequence stand-ins in tests
+                fwd_c = encode_bytes(s.forward_seq)
+                rev_c = encode_bytes(s.reverse_seq)
+            strand_codes.append(fwd_c)
+            strand_codes.append(rev_c)
+        codes = np.concatenate(strand_codes) if strand_codes \
+            else encode_bytes(buf)
 
     def codes_to_device():
         return torch.from_numpy(np.ascontiguousarray(codes)).to(dev)
@@ -486,15 +487,16 @@ def build_kmer_index(sequences, k: int, device=None,
             record_degrade("stream-kmers", "stream", "in-memory",
                            f"{type(e).__name__}: {e}")
     if stats is not None:
-        gid, order, depth, first_occ = stats
-        occ_kid = gid.astype(np.int32)
-        del gid, stats
-        # the streamed path never builds the M-sized starts; the
-        # representatives' byte starts follow from the occurrence layout
-        rep_byte_d = occ_byte_starts(
-            torch.from_numpy(first_occ).to(dev),
-            *(torch.from_numpy(a).to(dev)
-              for a in (seq_len, fwd_off, rev_off, occ_off)))
+        with substage("kmer-index"):
+            gid, order, depth, first_occ = stats
+            occ_kid = gid.astype(np.int32)
+            del gid, stats
+            # the streamed path never builds the M-sized starts; the
+            # representatives' byte starts follow from the occurrence layout
+            rep_byte_d = occ_byte_starts(
+                torch.from_numpy(first_occ).to(dev),
+                *(torch.from_numpy(a).to(dev)
+                  for a in (seq_len, fwd_off, rev_off, occ_off)))
     else:
         with substage("k-mer grouping"):
             if codes_d is None:
@@ -509,35 +511,38 @@ def build_kmer_index(sequences, k: int, device=None,
             else:
                 order_d, gid_sorted_d = rank_windows(codes_d, starts_d, k)
                 depth_d, first_occ_d = segment_stats(order_d, gid_sorted_d)
-            occ_kid = _to_host(scatter_gid(order_d, gid_sorted_d), np.int32)
-            order = _to_host(order_d)
+            occ_kid = to_host(scatter_gid(order_d, gid_sorted_d),
+                              "k-mer grouping", np.int32)
+            order = to_host(order_d, "k-mer grouping", np.int64)
             del order_d, gid_sorted_d
-            depth = _to_host(depth_d)
-            first_occ = _to_host(first_occ_d)
+            depth = to_host(depth_d, "k-mer grouping", np.int64)
+            first_occ = to_host(first_occ_d, "k-mer grouping", np.int64)
             rep_byte_d = starts_d[first_occ_d.long()]
             del starts_d
-    U = len(depth)
-    # occurrences grouped by kid; stable grouping keeps occurrence order
-    # inside each group ascending
-    group_start = np.zeros(U + 1, np.int64)
-    np.cumsum(depth, out=group_start[1:])
+    with substage("kmer-index"):
+        U = len(depth)
+        # occurrences grouped by kid; stable grouping keeps occurrence order
+        # inside each group ascending
+        group_start = np.zeros(U + 1, np.int64)
+        np.cumsum(depth, out=group_start[1:])
 
-    # first-position flag: only the two window-0 occurrences per sequence
-    # (forward occ_off[s], reverse occ_off[s] + L) can have pos == 0
-    first_pos = np.zeros(U, bool)
-    if M:
-        window0 = np.concatenate([occ_off, occ_off + seq_len])
-        first_pos[occ_kid[window0]] = True
+        # first-position flag: only the two window-0 occurrences per sequence
+        # (forward occ_off[s], reverse occ_off[s] + L) can have pos == 0
+        first_pos = np.zeros(U, bool)
+        if M:
+            window0 = np.concatenate([occ_off, occ_off + seq_len])
+            first_pos[occ_kid[window0]] = True
 
-    # reverse-complement partner: partner occurrence of the first occurrence
-    seq_idx_f = np.searchsorted(occ_off, first_occ, side="right") - 1
-    rel_f = first_occ - occ_off[seq_idx_f]
-    L_f = seq_len[seq_idx_f]
-    strand_f = rel_f < L_f
-    pos_f = np.where(strand_f, rel_f, rel_f - L_f)
-    partner = occ_off[seq_idx_f] + np.where(strand_f, L_f + (L_f - 1 - pos_f),
-                                            L_f - 1 - pos_f)
-    rev_kid = occ_kid[partner]
+        # reverse-complement partner: partner occurrence of the first one
+        seq_idx_f = np.searchsorted(occ_off, first_occ, side="right") - 1
+        rel_f = first_occ - occ_off[seq_idx_f]
+        L_f = seq_len[seq_idx_f]
+        strand_f = rel_f < L_f
+        pos_f = np.where(strand_f, rel_f, rel_f - L_f)
+        partner = occ_off[seq_idx_f] + np.where(strand_f,
+                                                L_f + (L_f - 1 - pos_f),
+                                                L_f - 1 - pos_f)
+        rev_kid = occ_kid[partner]
 
     # ---- (k-1)-gram ids for adjacency ----
     # Adjacency only ever counts UNIQUE k-mers per gram (next_kmers probes
@@ -554,16 +559,15 @@ def build_kmer_index(sequences, k: int, device=None,
             gorder, ggid_sorted = rank_windows(codes_d, gram_starts, k - 1)
         gram_gid = scatter_gid(gorder, ggid_sorted).long()
         G = int(ggid_sorted[-1]) + 1 if len(gram_starts) else 0
-        rep_byte = _to_host(rep_byte_d)
+        rep_byte = to_host(rep_byte_d, "gram grouping", np.int64)
     # the JAX package's declared traffic: two int32 gram-id reads and
     # three int32 writes (out, in, successor) per unique k-mer
     with substage("adjacency"), device_work("adjacency segment ops", dev,
                                             bytes_moved=20.0 * U):
         out_d, in_d, succ_d = adjacency(gram_gid[:U], gram_gid[U:], G)
-        prefix_gid = _to_host(gram_gid[:U])
-        suffix_gid = _to_host(gram_gid[U:])
-        out_count, in_count, succ = _to_host(out_d), _to_host(in_d), \
-            _to_host(succ_d)
+        prefix_gid, suffix_gid, out_count, in_count, succ = (
+            to_host(t, "adjacency", np.int64)
+            for t in (gram_gid[:U], gram_gid[U:], out_d, in_d, succ_d))
 
     return KmerIndex(
         k=k, half_k=half_k, buf=buf, seq_ids=seq_ids, seq_len=seq_len,

@@ -36,7 +36,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..device import dp_dispatch, resolve_device
+from ..device import dp_dispatch, resolve_device, to_host
 from ..utils.cache import content_hash
 from ..utils.knobs import knob_int
 from .encode import encode_both_strands
@@ -237,7 +237,7 @@ def sketch_matrix(graph, sequences,
         rows[i], valid[i] = sketch_from_codes(
             torch.from_numpy(np.ascontiguousarray(fwd)).to(dev),
             torch.from_numpy(np.ascontiguousarray(rc)).to(dev), k, w, s)
-    S = rows.cpu().numpy().astype(np.uint32)
+    S = to_host(rows, "sketch", np.uint32)
     if missed:
         cache.store_sketches(k, w, s, [(key, S[i], int(valid[i]))
                                        for i, key in missed.items()])
@@ -289,7 +289,7 @@ def sketch_intersections(S: np.ndarray, device=None) -> np.ndarray:
             idx.clamp_(max=s - 1)
             hit = (torch.gather(targets, 1, idx) == flat).reshape(c, n, s)
             inter[:, b0:b0 + c] = (hit & real).sum(dim=2).T
-    return inter.cpu().numpy()
+    return to_host(inter, "cluster_sketch_grid")
 
 
 def _containment_to_matrix(inter: np.ndarray, valid: np.ndarray

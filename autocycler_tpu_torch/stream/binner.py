@@ -33,6 +33,7 @@ from typing import List
 import numpy as np
 import torch
 
+from ..device import to_host
 from ..ops.sketch import _kmer_hashes, _window_minima
 from ..utils.pool import OrderedSubmitter
 from ..utils.resilience import crash_armed, crash_point, fault_fire
@@ -87,8 +88,9 @@ class StreamBinner:
             sorted_bins, order = torch.sort(bins, stable=True)
             uniq, lens = torch.unique_consecutive(sorted_bins,
                                                   return_counts=True)
-            occs = (order + (occ_start + lo)).cpu().numpy()
-            self._route(uniq.cpu().numpy(), lens.cpu().numpy(), occs)
+            occs = to_host(order + (occ_start + lo), "stream-bin")
+            self._route(to_host(uniq, "stream-bin"),
+                        to_host(lens, "stream-bin"), occs)
             self.chunks += 1
 
     def _route(self, uniq: np.ndarray, lens: np.ndarray,

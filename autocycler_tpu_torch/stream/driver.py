@@ -227,5 +227,5 @@ def _stitch(groups, grank: torch.Tensor, M: int, plan: StreamPlan):
         del occ_c
         i, u0 = j, u0 + nu
     groups.clear()
-    return (gid.cpu().numpy(), order.cpu().numpy(), depth.cpu().numpy(),
-            first_occ.cpu().numpy())
+    return tuple(_device.to_host(t, "stream-stitch")
+                 for t in (gid, order, depth, first_occ))

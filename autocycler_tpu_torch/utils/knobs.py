@@ -57,7 +57,10 @@ def _k(name: str, kind: str, default: Default, doc: str) -> Tuple[str, Knob]:
 KNOBS: Dict[str, Knob] = dict([
     # --- observability ---------------------------------------------------
     _k("AUTOCYCLER_TRACE_DIR", "str", None,
-       "Root directory for per-run trace/artifact dirs; unset disables run tracing."),
+       "Root directory for per-run trace/artifact dirs; unset disables run tracing. "
+       "Each span has ts/dur (s from the run's start) and t0_ns/t1_ns (Unix ns, the clock "
+       "of time.time_ns() and torch.profiler's events); a run opened in memory "
+       "(obs.trace.open_run(None)) writes no file and hashes nothing."),
     _k("AUTOCYCLER_METRICS", "str", None,
        "Path to write a Prometheus text-format metrics dump at process exit."),
     _k("AUTOCYCLER_TIMINGS", "bool", False,

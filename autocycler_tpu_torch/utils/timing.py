@@ -13,9 +13,9 @@ with a device result copied to the host has waited for its device work, so
 its wall time includes that work.
 
 It names the device families, the JAX package's, that
-``device.fold_records`` writes (seconds, dispatches, the per-dispatch and
-per-kernel histograms, and the useful flops and bytes a dispatch site
-declares, by kernel and phase, beside the seconds they divide), reads them
+``device.fold_records`` writes (seconds, dispatches, the per-kernel
+histogram, and the useful flops and bytes a dispatch site declares, by
+kernel and phase, beside the seconds they divide), reads them
 back by kernel (:func:`device_kernel_snapshot`, rated by
 ``ops.mfu.kernel_rates``), times the waits on the device probe
 (:func:`device_wait`) and counts device-path failures
@@ -60,7 +60,6 @@ DEVICE_WAIT = "autocycler_device_wait_seconds_total"
 DEVICE_DISPATCHES = "autocycler_device_dispatches_total"
 DEVICE_FAILURES = "autocycler_device_failures_total"
 DEVICE_FAILURE_LAST = "autocycler_device_failure_last"
-DEVICE_DISPATCH_HIST = "autocycler_device_dispatch_seconds"
 DEVICE_KERNEL_HIST = "autocycler_device_kernel_seconds"
 DEVICE_KERNEL_FLOPS = "autocycler_device_kernel_flops_total"
 DEVICE_KERNEL_BYTES = "autocycler_device_kernel_bytes_total"

@@ -25,7 +25,7 @@ from autocycler_tpu_torch.commands.compress import compress
 from autocycler_tpu_torch.commands.resolve import resolve
 from autocycler_tpu_torch.commands.trim import trim
 from autocycler_tpu_torch.models import UnitigGraph
-from autocycler_tpu_torch.obs import metrics_registry
+from autocycler_tpu_torch.obs import metrics_registry, trace
 from autocycler_tpu_torch.ops.distance import pairwise_contig_distances
 from autocycler_tpu_torch.utils import timing
 
@@ -192,6 +192,58 @@ def test_precomputed_distances_write_the_same_files(tmp_path):
     want = _all_files(tmp_path / "plain/clustering")
     got = _all_files(tmp_path / "given/clustering")
     assert got == want
+
+
+# the substages each command opens below its stage steps, by the function or
+# the step's part they time; ``cluster-*`` and ``resolve-*`` tile their
+# commands without nesting in one another (benchmark/metrics/cluster_s.py and
+# resolve_s.py sum them), and finer ones inside them drop the prefix
+NAMED_SUBSTAGES = {
+    "compress": {"encode", "kmer-index", "chain-emit", "chain-seqs",
+                 "graph-index", "simplify-fixed", "simplify-expand",
+                 "simplify-renumber", "compress-qc"},
+    "cluster": {"cluster-read", "cluster-parse", "cluster-paths",
+                "cluster-distance-product", "cluster-save-matrix",
+                "cluster-upgma", "cluster-newick", "cluster-generate",
+                "cluster-subset", "cluster-save-gfa", "cluster-save-tsv",
+                "cluster-qc"},
+    "trim": {"trim-load", "trim-paths", "trim-signed-paths",
+             "trim-overlap-jobs", "trim-overlap-screen", "trim-overlap-align",
+             "trim-start-end", "trim-hairpin", "trim-choose-type",
+             "trim-exclude-outliers", "trim-clean-up", "trim-save",
+             "trim-qc"},
+    "resolve": {"resolve-load", "resolve-anchors", "resolve-bridges",
+                "bridge-paths", "medoid-distances", "bridge-build",
+                "resolve-ambiguity", "resolve-apply", "resolve-save",
+                "resolve-merge", "resolve-cull", "resolve-reload",
+                "resolve-qc"},
+}
+
+
+def test_each_named_function_opens_its_substage(tmp_path):
+    """A hand-over isolate in an in-memory trace run (the inversion, so that
+    resolve culls and reloads) opens every named substage, writes no trace
+    file, and no ``cluster-*`` or ``resolve-*`` span holds another of its
+    prefix."""
+    asm = _inversion(tmp_path)
+    run = trace.open_run(None, name="handoff")
+    try:
+        handoff_flow(PORT, asm, tmp_path / "port")
+    finally:
+        spans = trace.close_run(run)
+    names = {s["name"] for s in spans if s["cat"] == "substage"}
+    for command, expected in NAMED_SUBSTAGES.items():
+        assert expected <= names, (command, expected - names)
+    assert not list(tmp_path.rglob("trace.jsonl"))
+    by_id = {s["id"]: s for s in spans}
+    for s in spans:
+        prefix = s["name"].split("-", 1)[0] + "-"
+        if prefix not in ("cluster-", "resolve-"):
+            continue
+        parent = by_id.get(s["parent"])
+        while parent is not None:
+            assert not parent["name"].startswith(prefix), (s, parent)
+            parent = by_id.get(parent["parent"])
 
 
 def test_stage_names_match_jax(tmp_path, monkeypatch):

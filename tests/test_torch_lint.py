@@ -647,10 +647,16 @@ def test_metrics_span_rules(tmp_path):
     assert "Compress Stage" in findings[0].message
 
 
+# the port's own families, with no JAX counterpart: the copies to the host
+# that ``device.to_host`` counts by site
+PORT_ONLY_METRICS = {"autocycler_device_to_host_bytes_total",
+                     "autocycler_device_to_host_copies_total"}
+
+
 def test_metrics_the_ports_names_are_the_jax_names():
     """Every metric name the port's source registers statically is one the
-    JAX package's source registers too, and both engines find the port's
-    sites clean."""
+    JAX package's source registers too, but the port's own families, and
+    both engines find the port's sites clean."""
     import ast
 
     from autocycler_tpu_torch.analysis.engine import Module
@@ -672,7 +678,8 @@ def test_metrics_the_ports_names_are_the_jax_names():
 
     port = names(REPO, "autocycler_tpu_torch")
     assert len(port) > 30
-    assert sorted(port - names(REPO, "autocycler_tpu")) == []
+    assert sorted(port - names(REPO, "autocycler_tpu")) == \
+        sorted(PORT_ONLY_METRICS)
     result = lint_cmd.run(rules=["metrics"])
     assert result["findings"] == []
 

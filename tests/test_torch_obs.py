@@ -14,8 +14,10 @@ import io
 import json
 import re
 import threading
+import time
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -35,7 +37,26 @@ RUN_FILES = ["ledger.json", "metrics.json", "metrics.prom", "qc_report.json",
              "trace.chrome.json", "trace.jsonl"]
 # substages the port times that the JAX package does not: its grouping
 # kernels' own steps, the write of compress's files and combine's work
-PORT_ONLY_SUBSTAGES = {"k-mer grouping", "gram grouping", "write", "combine"}
+PORT_ONLY_SUBSTAGES = {"k-mer grouping", "gram grouping", "write", "combine",
+                       # the port's spans below the JAX package's stages,
+                       # and the run record's own cost
+                       "encode", "kmer-index", "chain-emit", "chain-seqs",
+                       "graph-index", "simplify-fixed", "simplify-expand",
+                       "simplify-renumber", "compress-qc", "ledger",
+                       "cluster-read", "cluster-parse", "cluster-paths",
+                       "cluster-distance-product", "cluster-save-matrix",
+                       "cluster-upgma", "cluster-newick", "cluster-generate",
+                       "cluster-subset", "cluster-save-gfa",
+                       "cluster-save-tsv", "cluster-qc", "trim-load",
+                       "trim-paths", "trim-signed-paths", "trim-overlap-jobs",
+                       "trim-overlap-screen", "trim-overlap-align",
+                       "trim-start-end", "trim-hairpin", "trim-choose-type",
+                       "trim-exclude-outliers", "trim-clean-up", "trim-save",
+                       "trim-qc", "resolve-load", "resolve-anchors",
+                       "resolve-bridges", "bridge-paths", "medoid-distances",
+                       "bridge-build", "resolve-ambiguity",
+                       "resolve-apply", "resolve-save", "resolve-merge",
+                       "resolve-cull", "resolve-reload", "resolve-qc"}
 
 
 @pytest.fixture(autouse=True)
@@ -141,6 +162,104 @@ def test_chrome_trace_schema(tmp_path):
                for e in rest)
     a = next(e for e in rest if e["name"] == "stage_a")
     assert a["args"]["foo"] == "bar" and "mem" in a["args"]
+
+
+def test_in_memory_run_writes_nothing_and_hashes_nothing(tmp_path,
+                                                         monkeypatch):
+    """A run opened with no directory keeps its spans in memory: no file
+    appears, the ledger hashes nothing, and closing returns the spans on
+    the absolute clock."""
+    monkeypatch.chdir(tmp_path)
+    ledger.reset()
+    fasta = tmp_path / "a.fasta"
+    fasta.write_text(">a\nACGT\n")
+    before = sorted(tmp_path.rglob("*"))
+    run = trace.open_run(None, name="memory")
+    assert trace.tracing_active() and trace.trace_dir() is None
+    with trace.span("outer", cat="stage"):
+        with timing.substage("inner"):
+            ledger.record_inputs([fasta])
+            assert ledger.record_stage("s", inputs=[fasta],
+                                       outputs=[fasta]) is None
+    spans = trace.close_run(run)
+    assert not trace.tracing_active() and trace.close_run(run) is None
+    assert sorted(tmp_path.rglob("*")) == before
+    built = ledger.build_ledger()
+    assert built["inputs"] == {} and built["stages"] == []
+    inner, outer = spans
+    assert (inner["name"], outer["name"]) == ("inner", "outer")
+    assert inner["parent"] == outer["id"] and "mem" not in outer
+    assert outer["t0_ns"] <= inner["t0_ns"] <= inner["t1_ns"] \
+        <= outer["t1_ns"]
+
+
+def test_directory_run_adds_the_absolute_clock(tmp_path):
+    """A run with a directory writes its files as before, each span with
+    ``t0_ns``/``t1_ns`` beside ``ts``/``dur`` (in trace.jsonl and among the
+    Chrome event's args), and times the ledger's hashing as a substage."""
+    ledger.reset()
+    fasta = tmp_path / "a.fasta"
+    fasta.write_text(">a\nACGT\n")
+    t_before = time.time_ns()
+    trace.start_run(tmp_path / "run", name="clock")
+    with trace.span("outer", cat="stage"):
+        ledger.record_inputs([fasta])
+    trace.finish_run()
+    t_after = time.time_ns()
+    ledger.write_ledger(tmp_path / "run")
+    assert sorted(p.name for p in (tmp_path / "run").iterdir()) == [
+        "ledger.json", "metrics.json", "metrics.prom", "trace.chrome.json",
+        "trace.jsonl"]
+    records = _load_jsonl(tmp_path / "run" / trace.TRACE_JSONL)
+    header = records[0]
+    spans = {r["name"]: r for r in records if r["type"] == "span"}
+    assert set(spans) == {"outer", "ledger"}
+    for s in spans.values():
+        assert t_before <= header["t0_ns"] <= s["t0_ns"] <= s["t1_ns"] \
+            <= t_after
+        assert abs(s["t0_ns"] - header["t0_ns"] - s["ts"] * 1e9) <= 1e3
+        assert abs(s["t1_ns"] - s["t0_ns"] - s["dur"] * 1e9) <= 1e3
+    assert spans["ledger"]["parent"] == spans["outer"]["id"]
+    chrome = json.loads((tmp_path / "run" / trace.TRACE_CHROME).read_text())
+    outer = next(e for e in chrome["traceEvents"] if e["name"] == "outer")
+    assert (outer["args"]["t0_ns"], outer["args"]["t1_ns"]) == \
+        (spans["outer"]["t0_ns"], spans["outer"]["t1_ns"])
+    got = json.loads((tmp_path / "run" / ledger.LEDGER_JSON).read_text())
+    assert got["inputs"][str(fasta)]["sha256"] == _sha256(fasta)
+
+
+def test_span_clock_is_the_profilers():
+    """A torch op run inside a program span lies, on the profiler's own
+    clock, inside the span's [t0_ns, t1_ns]."""
+    x = torch.randn(256, 256)
+    run = trace.open_run(None, name="clock")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        with trace.span("mm", cat="device"):
+            torch.mm(x, x)
+    (span,) = trace.close_run(run)
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.name() == "aten::mm"]
+    assert events
+    for e in events:
+        assert span["t0_ns"] <= e.start_ns() \
+            <= e.start_ns() + e.duration_ns() <= span["t1_ns"]
+
+
+def test_to_host_counts_bytes_and_copies_by_site():
+    _reset_registries()
+    a = torch.arange(10, dtype=torch.int32)
+    out = device.to_host(a, "site-a", np.int64)
+    assert out.dtype == np.int64 and out.tolist() == list(range(10))
+    assert device.to_host(torch.zeros(3, 4, dtype=torch.float64),
+                          "site-b").shape == (3, 4)
+    assert device.to_host(a, "site-a").dtype == np.int32
+    reg = metrics_registry.registry()
+    assert reg.labeled(device.TO_HOST_BYTES, "site") == {"site-a": 80.0,
+                                                         "site-b": 96.0}
+    assert reg.labeled(device.TO_HOST_COPIES, "site") == {"site-a": 2.0,
+                                                          "site-b": 1.0}
+    assert device.to_host_bytes() == 176.0
 
 
 def test_second_start_is_an_error_and_maybe_start_owns_one(tmp_path,
@@ -659,16 +778,18 @@ PORT_ONLY_SITES = {"cluster distance matmul", "trim_overlap_dp",
 
 
 def _dispatches(run_dir):
-    """(dispatch total, {what: count}, device seconds) of a run's dump: the
-    process's registry so far."""
+    """(dispatch total, {kernel: count over both phases}, device seconds)
+    of a run's dump: the process's registry so far."""
     snap = json.loads((run_dir / "metrics.json").read_text())
 
     def total(name):
         return sum(v["value"] for v in
                    (snap.get(name) or {}).get("values", []))
-    per_site = {v["labels"]["what"]: v["count"] for v in
-                (snap.get("autocycler_device_dispatch_seconds") or {})
-                .get("values", [])}
+    per_site = {}
+    for v in (snap.get("autocycler_device_kernel_seconds") or {}).get(
+            "values", []):
+        kernel = v["labels"]["kernel"]
+        per_site[kernel] = per_site.get(kernel, 0) + v["count"]
     return (total("autocycler_device_dispatches_total"), per_site,
             total("autocycler_device_seconds_total"))
 

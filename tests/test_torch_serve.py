@@ -440,9 +440,11 @@ def test_registry_and_records_survive_jobs(inputs, tmp_path, capsys):
 
     def dispatched():
         reg = metrics_registry.registry()
-        per_kind = {e["labels"]["what"]: e["count"] for e in
-                    reg.snapshot()[timing.DEVICE_DISPATCH_HIST]["values"]} \
-            if timing.DEVICE_DISPATCH_HIST in reg.snapshot() else {}
+        per_kind = {}
+        for e in reg.snapshot().get(timing.DEVICE_KERNEL_HIST, {}).get(
+                "values", []):
+            kernel = e["labels"]["kernel"]
+            per_kind[kernel] = per_kind.get(kernel, 0) + e["count"]
         return reg.value(timing.DEVICE_DISPATCHES), per_kind
 
     total0, kinds0 = dispatched()
