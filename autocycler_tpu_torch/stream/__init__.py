@@ -5,7 +5,9 @@ on the port's device path.
 ``ops.kmers.build_kmer_index`` dispatches here behind
 ``AUTOCYCLER_STREAM_KMERS`` (off/on/auto, as the JAX package does); the
 in-memory grouping gives the same arrays, and a spill failure degrades the
-run to it visibly (``utils.resilience.record_degrade``).
+run to it visibly (``utils.resilience.record_degrade``). Pass 1 bins
+batches of plan chunks on the device (``binner``), and the host appends
+each flushed bin once a batch; the bin files are the JAX package's bytes.
 """
 
 from pathlib import Path

@@ -6,9 +6,10 @@ the same stable order within a group, int64 on the host) without sorting
 the whole window set at once:
 
 1. pass 1 (:class:`.binner.StreamBinner`) spills RLE occurrence records
-   into minimizer-signature bins under the run's ``.stream`` dir, hashing
-   and routing each chunk on the device, with disk appends overlapping the
-   next chunk on the writer lane;
+   into minimizer-signature bins under the run's ``.stream`` dir, hashing,
+   routing, buffering and run-encoding batches of plan chunks on the
+   device, with one append a flushed bin a batch overlapping the next
+   batch on the writer lane;
 2. pass 2 (:mod:`.sorter`) groups each bin with the grouping kernel, in
    bin order on one device stream, while the next bins' disk reads and
    decodes run ahead on the pool (more of them with more workers). A bin
@@ -27,7 +28,9 @@ names: ``autocycler_stream_spill_bytes`` (a gauge, live at every append,
 0 once the run dir is removed), ``_spill_bytes_total``, ``_rle_ratio``
 (raw int64 bytes over the bytes on disk), ``_bins_total``,
 ``_quarantined_bins_total`` and ``_orphans_swept_total``; ``top`` draws
-its Spill line from them.
+its Spill line from them. The port adds ``_pass1_batches_total``, the
+device batches of pass 1, which ``spill.last_run`` gives as
+``pass1_batches`` beside the bin ``appends``.
 """
 
 from __future__ import annotations
@@ -171,6 +174,7 @@ def stream_group_windows_stats(codes: torch.Tensor, seq_len: np.ndarray,
             workers=workers, mem_budget_mb=plan.mem_budget_bytes >> 20,
             chunk_windows=plan.chunk_windows,
             flush_records=plan.flush_records, representatives=len(depth),
+            pass1_batches=binner.batches, appends=binner.appends,
             sort_launches=launches1 - launches0,
             merge_launches=launches2 - launches1)
         return gid, order, depth, first_occ

@@ -161,13 +161,14 @@ def crash_marker(stderr: Optional[str], point: str) -> Optional[str]:
 def chaos_cycle(asm_parent, work_dir, point: str, kmer: int = 31,
                 oracle: Optional[Dict[str, Optional[str]]] = None,
                 timeout: float = 900.0, device: str = "cuda",
-                threads: int = 1) -> dict:
-    """One kill/restart cycle: arm ``point``, run batch on ``device`` in a
-    child until it crashes there, restart it with ``--resume`` and nothing
-    armed, and compare the recovered outputs with ``oracle`` (the digests
-    of an uninterrupted run, see :func:`artifact_digests`). Returns a
-    verdict: ``passed`` needs the crash, the recovery, byte identity and a
-    clean orphan scan; ``orphans_swept`` is what the resumed run swept."""
+                threads: int = 1, hit: int = 1) -> dict:
+    """One kill/restart cycle: arm ``point`` at its ``hit``-th hit, run
+    batch on ``device`` in a child until it crashes there, restart it with
+    ``--resume`` and nothing armed, and compare the recovered outputs with
+    ``oracle`` (the digests of an uninterrupted run, see
+    :func:`artifact_digests`). Returns a verdict: ``passed`` needs the
+    crash, the recovery, byte identity and a clean orphan scan;
+    ``orphans_swept`` is what the resumed run swept."""
     if point not in CRASH_POINTS:
         raise ValueError(f"unknown crash point {point!r} "
                          f"(choose from {', '.join(CRASH_POINTS)})")
@@ -183,7 +184,8 @@ def chaos_cycle(asm_parent, work_dir, point: str, kmer: int = 31,
     t0 = time.perf_counter()
     crashed = _run_batch(child, Path(asm_parent), out_dir, kmer,
                          resume=False,
-                         env=_child_env(repo_root, crash_points=point),
+                         env=_child_env(repo_root,
+                                        crash_points=f"{point}@{hit}"),
                          device=device, threads=threads,
                          metrics_path=work_dir / f"metrics-{point}-crash.json",
                          timeout=timeout)
@@ -229,11 +231,12 @@ def chaos_cycle(asm_parent, work_dir, point: str, kmer: int = 31,
 def run_chaos(asm_parent, work_dir, points=CRASH_POINTS, kmer: int = 31,
               timeout: float = 900.0, device: str = "cuda",
               threads: int = 1,
-              oracle: Optional[Dict[str, Optional[str]]] = None) -> dict:
+              oracle: Optional[Dict[str, Optional[str]]] = None,
+              hit: int = 1) -> dict:
     """The full harness: one uninterrupted oracle run (unless ``oracle``
     gives its digests, from files already made), then a crash and restart
-    cycle at each of ``points``, each recovered run held byte-identical to
-    the oracle. Returns the summary."""
+    cycle at the ``hit``-th hit of each of ``points``, each recovered run
+    held byte-identical to the oracle. Returns the summary."""
     work_dir = Path(work_dir)
     work_dir.mkdir(parents=True, exist_ok=True)
     child = _write_child(work_dir)
@@ -258,7 +261,7 @@ def run_chaos(asm_parent, work_dir, points=CRASH_POINTS, kmer: int = 31,
 
     cycles = [chaos_cycle(asm_parent, work_dir, point, kmer=kmer,
                           oracle=oracle, timeout=timeout, device=device,
-                          threads=threads)
+                          threads=threads, hit=hit)
               for point in points]
     return {
         "points": list(points),

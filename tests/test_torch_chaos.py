@@ -54,6 +54,27 @@ def test_every_crash_point_recovers_byte_identical(tmp_path, monkeypatch):
         chaos.artifact_digests(tmp_path / "work" / "out-oracle")
 
 
+def test_a_torn_append_in_a_later_pass1_batch_recovers(tmp_path,
+                                                        monkeypatch):
+    """The torn append lands in pass 1's second batch (one bin, a flush
+    every chunk: one append a batch; plan chunks of 10 windows, over 100
+    of them an isolate, so several batches); the resumed run sweeps the
+    torn run dir and writes the uninterrupted run's bytes."""
+    from autocycler_tpu_torch.utils import chaos
+
+    for name, value in (("BINS", "1"), ("CHUNK", "10"), ("FLUSH", "1")):
+        monkeypatch.setenv(f"AUTOCYCLER_STREAM_{name}", value)
+    parent = make_isolate_dirs(tmp_path / "isolates", 2, seed0=7, **TINY)
+    summary = chaos.run_chaos(parent, tmp_path / "work", kmer=21,
+                              device="cpu", points=("mid-spill-write",),
+                              hit=2)
+    (cycle,) = summary["cycles"]
+    assert cycle["passed"], cycle
+    assert cycle["crash_line"] == \
+        "autocycler crash injection: mid-spill-write (bin-0000.u64)"
+    assert cycle["orphans_swept"] == 1
+
+
 def test_unknown_crash_point_rejected(tmp_path):
     from autocycler_tpu_torch.utils import chaos
 

@@ -321,11 +321,15 @@ compress(asm, out, k_size=21, device="cpu")
 @pytest.mark.parametrize("point,how", [
     ("post-stage", "points"), ("mid-spill-write", "points"),
     ("mid-cache-store", "points"), ("pre-artifact-rename", "points"),
-    ("mid-fleet-shard", "points"), ("mid-spill-write", "plan")])
+    ("mid-fleet-shard", "points"), ("mid-spill-write", "plan"),
+    ("mid-spill-write", "second batch")])
 def test_each_crash_point_kills_a_child(tmp_path, point, how):
     """Armed (by AUTOCYCLER_CRASH_POINTS, or by a plan rule at the site),
     each registered crash point kills a child process at its real call
-    site, with exit 43 and the marker on stderr."""
+    site, with exit 43 and the marker on stderr. The second-batch case
+    tears the append of pass 1's second batch (one bin, a flush every
+    chunk: one append a batch), and leaves a torn run dir that the orphan
+    sweep removes."""
     if point == "mid-fleet-shard":
         asm = make_isolate_dirs(tmp_path / "isolates", 2, seed0=3, **TINY)
     else:
@@ -337,10 +341,28 @@ def test_each_crash_point_kills_a_child(tmp_path, point, how):
                 "AUTOCYCLER_ENCODE_CACHE": "1",
                 "AUTOCYCLER_FLEET_DEVICES": "1",
                 "AUTOCYCLER_TRACE_DIR": str(tmp_path / "run")})
-    env["AUTOCYCLER_CRASH_POINTS" if how == "points"
-        else "AUTOCYCLER_FAULTS"] = point
+    if how == "second batch":
+        # 2 x 2 x (1,980 + 380) windows in plan chunks of 100: 96 chunks,
+        # 3 batches of at most 32
+        env.update({"AUTOCYCLER_STREAM_BINS": "1",
+                    "AUTOCYCLER_STREAM_CHUNK": "100",
+                    "AUTOCYCLER_STREAM_FLUSH": "1",
+                    "AUTOCYCLER_CRASH_POINTS": f"{point}@2"})
+    else:
+        env["AUTOCYCLER_CRASH_POINTS" if how == "points"
+            else "AUTOCYCLER_FAULTS"] = point
     child = subprocess.run(
         [sys.executable, "-c", _CHILD, str(asm), str(tmp_path / "out"),
          point], env=env, capture_output=True, text=True, timeout=300)
     assert child.returncode == rz.CRASH_EXIT, child.stderr[-2000:]
     assert f"autocycler crash injection: {point}" in child.stderr
+    if how == "second batch":
+        from autocycler_tpu_torch import stream as st
+        root = tmp_path / "out" / ".stream"
+        (torn,) = root.glob("run-*")
+        assert json.loads((torn / "manifest.json").read_text())[
+            "counts"] is None
+        assert (torn / "bin-0000.u64").stat().st_size > 0
+        with contextlib.redirect_stderr(io.StringIO()):
+            assert st.sweep_orphan_spills(root) == 1
+        assert not torn.exists()

@@ -648,9 +648,11 @@ def test_metrics_span_rules(tmp_path):
 
 
 # the port's own families, with no JAX counterpart: the copies to the host
-# that ``device.to_host`` counts by site
+# that ``device.to_host`` counts by site, and the device batches of the
+# stream's pass 1
 PORT_ONLY_METRICS = {"autocycler_device_to_host_bytes_total",
-                     "autocycler_device_to_host_copies_total"}
+                     "autocycler_device_to_host_copies_total",
+                     "autocycler_stream_pass1_batches_total"}
 
 
 def test_metrics_the_ports_names_are_the_jax_names():

@@ -28,6 +28,7 @@ from autocycler_tpu_torch.commands.compress import compress
 from autocycler_tpu_torch.models import Sequence
 from autocycler_tpu_torch.obs import metrics_registry
 from autocycler_tpu_torch.ops import kmers
+from autocycler_tpu_torch.stream import binner as binner_mod
 from autocycler_tpu_torch.stream import driver, spill
 from autocycler_tpu_torch.stream.binner import StreamBinner
 from autocycler_tpu_torch.utils import resilience as rz
@@ -287,16 +288,60 @@ def test_read_bin_records_verdicts_match_jax(tmp_path, fmt):
 # pass 1: the bin files
 # ---------------------------------------------------------------------------
 
+def _batch_of_each_chunk(seq_len, occ_off, chunk, cap):
+    """(first occurrence of every plan chunk, its pass-1 batch, first
+    occurrence of every strand run) for strand runs fed in order."""
+    chunk_starts, run_starts = [], []
+    for L, base in zip(seq_len.tolist(), occ_off.tolist()):
+        for occ0 in (base, base + L):
+            run_starts.append(occ0)
+            chunk_starts += range(occ0, occ0 + L, chunk)
+    chunk_starts = np.array(chunk_starts)
+    return chunk_starts, np.arange(len(chunk_starts)) // cap, \
+        np.array(run_starts)
+
+
+def _record_jax_flushes(monkeypatch):
+    """Every flush of the JAX binner, as (bin, first occurrence, last
+    occurrence) of the records it writes."""
+    flushes = []
+    real_flush = jst.StreamBinner._flush
+
+    def flush(self, b):
+        if self._bufs[b]:
+            flushes.append((b, int(self._bufs[b][0][0]),
+                            int(self._bufs[b][-1][-1])))
+        real_flush(self, b)
+
+    monkeypatch.setattr(jst.StreamBinner, "_flush", flush)
+    return flushes
+
+
+def _case(seqs, bins, chunk, flush, cap=None):
+    """A plan of test_bin_files_byte_identical_to_jax under the id that it
+    had before the batch cap was a case of it."""
+    return pytest.param(seqs, bins, chunk, flush, cap,
+                        id="-".join((seqs, bins, chunk, flush)
+                                    + ((f"cap{cap}",) if cap else ())))
+
+
 @pytest.mark.parametrize("rle", ["1", "0"])
 @pytest.mark.parametrize("pipeline", ["1", "3"])
-@pytest.mark.parametrize("seqs,bins,chunk,flush", [
-    ("random", "8", "4096", "512"), ("random", "13", "97", "17"),
-    ("adversarial", "5", "257", "0"), ("adversarial", "1", "33", "1")])
+@pytest.mark.parametrize("seqs,bins,chunk,flush,cap", [
+    _case("random", "8", "4096", "512"), _case("random", "13", "97", "17"),
+    _case("adversarial", "5", "257", "0"), _case("adversarial", "1", "33", "1"),
+    # the batch cap splits the input into many batches, with flushes whose
+    # records span both a batch boundary and a strand-run boundary
+    _case("random", "5", "37", "60", cap=2),
+    _case("adversarial", "3", "29", "45", cap=3)])
 def test_bin_files_byte_identical_to_jax(monkeypatch, tmp_path, seqs, bins,
-                                         chunk, flush, rle, pipeline):
+                                         chunk, flush, cap, rle, pipeline):
     for name, value in (("BINS", bins), ("CHUNK", chunk), ("FLUSH", flush),
                         ("RLE", rle), ("PIPELINE", pipeline)):
         monkeypatch.setenv(f"AUTOCYCLER_STREAM_{name}", value)
+    if cap:
+        monkeypatch.setattr(binner_mod, "BATCH_CHUNKS", cap)
+    flushes = _record_jax_flushes(monkeypatch)
     seqs = _random_seqs(seed=4) if seqs == "random" else _adversarial_seqs()
     codes, seq_len, fwd_off, rev_off, occ_off, _ = _layout(seqs)
     M = int(2 * seq_len.sum())
@@ -317,8 +362,22 @@ def test_bin_files_byte_identical_to_jax(monkeypatch, tmp_path, seqs, bins,
             b.add_run(c[ro:ro + L + K - 1], int(base) + L)
     summary = binner.close()
     jsummary = jbinner.close()
-    assert summary.pop("chunks") >= len(seq_len) * 2
+    chunks = summary.pop("chunks")
+    assert chunks >= len(seq_len) * 2
     assert summary == jsummary
+    cap = cap or binner_mod.BATCH_CHUNKS
+    assert binner.batches == -(-chunks // cap)
+    if cap < binner_mod.BATCH_CHUNKS:
+        assert binner.batches >= 3
+        chunk_starts, batch, run_starts = _batch_of_each_chunk(
+            seq_len, occ_off, plan.chunk_windows, cap)
+
+        def where(occ):
+            return (batch[np.searchsorted(chunk_starts, occ, "right") - 1],
+                    np.searchsorted(run_starts, occ, "right"))
+
+        assert any(where(lo)[0] != where(hi)[0] and where(lo)[1] != where(hi)[1]
+                   for _, lo, hi in flushes)
     names = sorted(p.name for p in ours.iterdir())
     assert names == sorted(p.name for p in theirs.iterdir())
     assert "manifest.json" in names and len(names) > 1
@@ -354,11 +413,15 @@ def _stats_everywhere(seqs, threads):
     {}, {"BINS": "11", "CHUNK": "257"},
     {"BINS": "13", "CHUNK": "97", "FLUSH": "17", "PIPELINE": "3"},
     {"BINS": "7", "CHUNK": "101", "RLE": "0", "PIPELINE": "1"},
-    {"BINS": "1", "CHUNK": "1"}])
+    {"BINS": "1", "CHUNK": "1"},
+    {"BINS": "5", "CHUNK": "37", "FLUSH": "60", "cap": 2}])
 def test_stream_stats_match_jax_and_in_memory(monkeypatch, tmp_path, threads,
                                               seqs, plan):
     for name, value in plan.items():
-        monkeypatch.setenv(f"AUTOCYCLER_STREAM_{name}", value)
+        if name == "cap":       # the pass-1 batch cap, a module constant
+            monkeypatch.setattr(binner_mod, "BATCH_CHUNKS", value)
+        else:
+            monkeypatch.setenv(f"AUTOCYCLER_STREAM_{name}", value)
     # the worker count as asked, on any number of cores
     monkeypatch.setenv("AUTOCYCLER_GROUPING_EXECUTOR", "pool")
     st.set_stream_root(tmp_path / ".stream")
@@ -373,6 +436,35 @@ def test_stream_stats_match_jax_and_in_memory(monkeypatch, tmp_path, threads,
     assert spill.last_run["workers"] == threads
     assert _metric(spill.SPILL_BYTES_GAUGE) == 0          # the run dir is gone
     assert not list((tmp_path / ".stream").glob("run-*"))
+
+
+def test_pass1_works_in_device_batches(monkeypatch, tmp_path):
+    """A streamed grouping at a small plan routes pass 1 in the batches
+    that the plan's chunk count and the batch cap imply, counts each in the
+    registry and in ``spill.last_run``, copies to the host at most twice a
+    batch and appends to each bin at most once a batch."""
+    monkeypatch.setattr(binner_mod, "BATCH_CHUNKS", 4)
+    for name, value in (("BINS", "6"), ("CHUNK", "50"), ("FLUSH", "40")):
+        monkeypatch.setenv(f"AUTOCYCLER_STREAM_{name}", value)
+    st.set_stream_root(tmp_path / ".stream")
+    codes, seq_len, fwd_off, rev_off, occ_off, starts = _layout(
+        _random_seqs(seed=21))
+    plan = st.plan_stream(len(starts), K)
+    chunks = 2 * sum(-(-int(L) // plan.chunk_windows) for L in seq_len)
+    batches = -(-chunks // 4)
+    got = st.stream_group_windows_stats(torch.from_numpy(codes), seq_len,
+                                        fwd_off, rev_off, occ_off, K)
+    copies = metrics_registry.registry().value(
+        "autocycler_device_to_host_copies_total", site="stream-bin")
+    assert 0 < copies <= 2 * batches
+    run = spill.last_run
+    assert run["chunks"] == chunks
+    assert run["pass1_batches"] == batches >= 3
+    assert _metric(binner_mod.PASS1_BATCHES_TOTAL) == batches
+    assert 0 < run["appends"] <= plan.n_bins * batches
+    want = kmers.group_windows_stats(codes, starts, K, device="cpu")
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
 
 
 def test_stream_stats_without_wired_root():
@@ -534,19 +626,47 @@ def test_a_quarantined_bin_counts_once_whatever_reads_are_in_flight(
     assert _metric(driver.QUARANTINED_BINS_TOTAL) == 1
 
 
-def test_write_error_degrades_visibly(monkeypatch, tmp_path, capsys):
+@pytest.mark.parametrize("batch", [1, 2])
+def test_write_error_degrades_visibly(monkeypatch, tmp_path, capsys, batch):
+    """An append that fails, in pass 1's first batch or (with the batch cap
+    at 2 and the fault plan's ``stream_write`` site armed as the second
+    batch's appends begin) in a later one, degrades the grouping to in
+    memory."""
     seqs = _random_seqs(seed=6)
     mem = _index(seqs, monkeypatch, "off")
     st.set_stream_root(tmp_path / ".stream")
+    if batch == 1:
+        def fail(self, path, payload):
+            raise OSError(f"stream bin write failed: {path.name}")
 
-    def fail(self, path, payload):
-        raise OSError(f"stream bin write failed: {path.name}")
+        monkeypatch.setattr(StreamBinner, "_append", fail)
+        reason = "OSError: stream bin"
+    else:
+        monkeypatch.setattr(binner_mod, "BATCH_CHUNKS", 2)
+        real_write = StreamBinner._write
+        writes = []
 
-    monkeypatch.setattr(StreamBinner, "_append", fail)
-    degraded = _index(seqs, monkeypatch, "on", BINS="5")
+        def write(self, data, jobs):
+            writes.append(len(jobs))
+            if len(writes) == batch:
+                rz.set_fault_plan(rz.FaultPlan.parse("stream_write:bin-::1"))
+            real_write(self, data, jobs)
+
+        monkeypatch.setattr(StreamBinner, "_write", write)
+        reason = "OSError: fault injection: stream bin write failed"
+    try:
+        degraded = _index(seqs, monkeypatch, "on", BINS="5",
+                          **({} if batch == 1 else {"CHUNK": "100",
+                                                    "FLUSH": "30"}))
+    finally:
+        rz.set_fault_plan(None)
     events = rz.degrade_events("stream-kmers")
-    assert events and events[0]["reason"].startswith("OSError: stream bin")
+    assert events and events[0]["reason"].startswith(reason)
     assert "stream -> in-memory (OSError" in capsys.readouterr().err
+    if batch == 2:
+        assert len(writes) == 2 and writes[0] > 0
+        assert metrics_registry.registry().value(
+            rz.FAULT_INJECTIONS_TOTAL, site="stream_write", mode="fail") == 1
     assert np.array_equal(mem.occ_kid, degraded.occ_kid)
     assert not list((tmp_path / ".stream").glob("run-*"))
 
