@@ -1,15 +1,20 @@
 """The benchmark's own instrumentation of the window.
 
 Always: a host clock around each stage call, ending in a synchronise, the
-program's substage seconds read around it, and for each isolate the
-program's degrade events and its stream's summary (``spill.last_run``). With
+program's substage seconds and the process's host counters (CPU seconds,
+bytes read and written) read around it, and for each isolate the program's
+degrade events and its stream's summary (``spill.last_run``). With
 ``--trace 1`` also:
 
 - CUDA events around every call into the k-mer grouping
-  (``ops/sortnet.py``'s CUDA entry) and into the overlap DP
-  (``ops/align.py`` ``overlap_screen_traceback``), with the shapes each call
-  was given as the host holds them (no device work is added), by wrappers
-  put in place for the window and taken out after;
+  (``ops/sortnet.py``'s CUDA entry), into the overlap DP (``ops/align.py``
+  ``overlap_screen_traceback``) and into cluster's sketch path
+  (``ops/sketch.py``: ``sketch_from_codes``, one contig's minimizer hashing,
+  and ``sketch_intersections``, the grid), with the shapes each call was
+  given as the host holds them (no device work is added), by wrappers put
+  in place for the window and taken out after; a sketch call is also
+  synchronised at both ends, and its own kernels' and copies' seconds are
+  taken from the trace (:func:`call_device_ms`);
 - a ``torch.profiler`` trace of the device's activity in the window, read
   into the device's busy time, each device operation's seconds, and the
   longest idle gaps, labelled by the stage the host had open.
@@ -28,6 +33,7 @@ from typing import Dict, List
 
 import torch
 
+from . import hostload
 
 
 def synchronize(device) -> None:
@@ -43,16 +49,22 @@ class Isolate:
         self.substages: Dict[str, float] = {}
         self.grouping: List[dict] = []
         self.overlap_dp: List[dict] = []
+        self.sketch_hash: List[dict] = []
+        self.sketch_grid: List[dict] = []
         self.stage_peaks: Dict[str, int] = {}
         self.stream: dict = {}
         self.degrades: List[dict] = []
+        self.qc_pass_clusters = 0
         self.wall_s = 0.0
+        self.host: Dict[str, dict] = {}
 
     def as_dict(self) -> dict:
         return {"wall_s": self.wall_s, "stages": self.stages,
                 "substages": self.substages, "grouping": self.grouping,
-                "overlap_dp": self.overlap_dp, "stage_peaks": self.stage_peaks,
-                "stream": self.stream, "degrades": self.degrades}
+                "overlap_dp": self.overlap_dp, "sketch_hash": self.sketch_hash,
+                "sketch_grid": self.sketch_grid, "stage_peaks": self.stage_peaks,
+                "stream": self.stream, "degrades": self.degrades,
+                "qc_pass_clusters": self.qc_pass_clusters, "host": self.host}
 
 
 class Instrument:
@@ -72,6 +84,7 @@ class Instrument:
         from autocycler_tpu_torch.utils import timing
 
         before = timing.substage_snapshot()
+        counters = hostload.process_counters()
         if self.trace:
             self._peak = max(self._peak, torch.cuda.max_memory_allocated(self.device))
             torch.cuda.reset_peak_memory_stats(self.device)
@@ -84,6 +97,10 @@ class Instrument:
             rec.stage_peaks[name] = max(rec.stage_peaks.get(name, 0), peak)
             self._peak = max(self._peak, peak)
         rec.stages[name] = rec.stages.get(name, 0.0) + time.perf_counter() - t0
+        spent = hostload.counters_delta(counters, hostload.process_counters())
+        summed = rec.host.setdefault(name, {})
+        for key, value in spent.items():
+            summed[key] = summed.get(key, 0) + value
         self.spans.append((ns0, time.time_ns(), name))
         for key, secs in timing.substage_snapshot().items():
             delta = secs - before.get(key, 0.0)
@@ -125,10 +142,12 @@ class Instrument:
         self._peak = 0
         if not self.trace:
             return
-        from autocycler_tpu_torch.ops import align, sortnet
+        from autocycler_tpu_torch.ops import align, sketch, sortnet
 
         self._wrap(sortnet, "pack_rank_cuda", self._grouping)
         self._wrap(align, "overlap_screen_traceback", self._overlap_dp)
+        self._wrap(sketch, "sketch_from_codes", self._sketch_hash)
+        self._wrap(sketch, "sketch_intersections", self._sketch_grid)
 
     def uninstall(self) -> None:
         for module, name, real in reversed(self._undo):
@@ -167,6 +186,67 @@ class Instrument:
                 "k": [int(v) for v in arrs["k"].tolist()]}))
             return out
         return timed
+
+    def _sketch_hash(self, real):
+        def timed(fwd, rc, k, w, s):
+            shape = {"positions": int(fwd.shape[0]), "k": k, "w": w, "s": s}
+            return self._between_synchronises(
+                "sketch_hash", lambda: real(fwd, rc, k, w, s), shape)
+        return timed
+
+    def _sketch_grid(self, real):
+        def timed(S, device=None):
+            n, s = S.shape
+            return self._between_synchronises("sketch_grid", lambda: real(S, device),
+                                              {"contigs": n, "s": s})
+        return timed
+
+    def _between_synchronises(self, kind, call, shape):
+        """``call()`` with the device idle before and after it: CUDA events
+        around it (``ms``: the span on the stream, with its copies and the
+        host's gaps between launches), and its host interval on the
+        profiler's clock, from which :func:`call_device_ms` takes the device
+        operations that are its own."""
+        synchronize(self.device)
+        ns0 = time.time_ns()
+        start, end = self._events()
+        out = call()
+        end.record()
+        synchronize(self.device)
+        ns1 = time.time_ns()
+        self._pending.append((kind, start, end, {**shape, "_ns": (ns0, ns1)}))
+        return out
+
+
+def call_device_ms(prof, isolates) -> None:
+    """Each sketch call's own device time from the trace, put in its entry:
+    ``kernel_ms``, the device operations that start inside the call's host
+    interval, copies between host and device left out (what a roofline
+    reads), and ``copy_ms``, those copies. The call synchronised at both
+    ends, so nothing of another call starts inside it."""
+    import bisect
+
+    from . import attribute
+
+    busy, copies = attribute.device_events(prof)
+
+    def summed(intervals):
+        intervals = sorted(intervals)
+        starts = [t0 for t0, _ in intervals]
+        total = [0]
+        for t0, t1 in intervals:
+            total.append(total[-1] + t1 - t0)
+        return lambda lo, hi: (total[bisect.bisect_left(starts, hi)]
+                               - total[bisect.bisect_left(starts, lo)])
+
+    all_ns = summed(busy)
+    copy_ns = summed([(t0, t1) for _, t0, t1 in copies])
+    for rec in isolates:
+        for entry in rec.sketch_hash + rec.sketch_grid:
+            lo, hi = entry.pop("_ns")
+            copied = copy_ns(lo, hi)
+            entry["kernel_ms"] = (all_ns(lo, hi) - copied) / 1e6
+            entry["copy_ms"] = copied / 1e6
 
 
 # ---- the profiler (--trace 1) ----

@@ -14,9 +14,13 @@ window has closed.
 
 An isolate in which the program degraded (``resilience.degrade_events()``:
 a spill failure sends compress back to the in-memory grouping, with its
-stderr line discarded here), or whose compress streamed where the
-configuration says it does not, or not where it does, ran off the path
-that its cell measures: it counts as failed, and the run is not correct.
+stderr line discarded here), or that took another path than its
+configuration states, ran off the path that its cell measures: it counts as
+failed, and the run is not correct. The configuration states two paths:
+``streams`` (whether compress streams its k-mer grouping) and ``distance``
+(``"exact"``, the default, or ``"sketch"``: which distances cluster works
+out, read from the isolate's own substages, ``cluster-distance-product``
+and ``cluster-sketch-distances``).
 """
 
 from __future__ import annotations
@@ -34,10 +38,34 @@ import torch
 
 from ..gen import synthetic, traffic as traffic_gen
 from ..reference import check as reference
-from . import instrument
+from . import hostload, instrument
 
 # the window's own numbers, each with its limit, beside the reference's
 LIMITS = {**reference.LIMITS, "isolates_degraded": 0, "isolates_off_path": 0}
+
+# the substage that each of cluster's distance paths, and only it, runs
+DISTANCE_SUBSTAGES = {"exact": "cluster-distance-product",
+                      "sketch": "cluster-sketch-distances"}
+
+
+def distance_path(config: dict) -> str:
+    """The configuration's ``distance``: ``"exact"`` where it gives none."""
+    path = config.get("distance", "exact")
+    if path not in DISTANCE_SUBSTAGES:
+        raise ValueError(f"distance is one of {sorted(DISTANCE_SUBSTAGES)}: "
+                         f"{path!r}")
+    return path
+
+
+def off_path(rec: instrument.Isolate, streams: bool, distance: str) -> bool:
+    """Whether the isolate left its configuration's paths: compress streamed
+    where ``streams`` says not, or not where it says so; or cluster did not
+    run the ``distance`` path's substage, or ran another's (``verify`` runs
+    both)."""
+    if bool(rec.stream.get("bins")) != streams:
+        return True
+    return any((name in rec.substages) != (path == distance)
+               for path, name in DISTANCE_SUBSTAGES.items())
 
 
 def _discard():
@@ -77,6 +105,7 @@ def run_isolate(asm_dir: Path, out_dir: Path, config: dict, device,
             with instr.stage("cluster"):
                 handoff = cluster(out_dir, collect_handoff=True, device=dev)
             clusters = sorted(handoff)
+            instr.current.qc_pass_clusters = len(clusters)
             for c in clusters:
                 with instr.stage("trim"):
                     trimmed = trim(c, preloaded=handoff.pop(c), device=dev)
@@ -117,6 +146,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device,
 
 
 def _run(cell, config, traffic, seed, seconds, trace, device, t_start, work):
+    distance = distance_path(config)
     attach(device)
     pool = []
     for i in range(config["pool_isolates"]):
@@ -150,8 +180,8 @@ def _run(cell, config, traffic, seed, seconds, trace, device, t_start, work):
     instr.uninstall()
 
     degraded = [bool(r.degrades) for r in isolates]
-    off_path = [bool(r.stream.get("bins")) != config["streams"] for r in isolates]
-    failed = sum(d or o for d, o in zip(degraded, off_path))
+    strayed = [off_path(r, config["streams"], distance) for r in isolates]
+    failed = sum(d or o for d, o in zip(degraded, strayed))
     record = {
         "setup_s": setup_s, "window_s": window_s, "attempted": len(isolates)
         + (failure is not None), "failed": failed + (failure is not None),
@@ -162,13 +192,15 @@ def _run(cell, config, traffic, seed, seconds, trace, device, t_start, work):
     if prof is not None:
         record["trace"] = instrument.read_trace(prof, instr.spans,
                                                 (window_ns0, window_ns1))
+        instrument.call_device_ms(prof, isolates)
         del prof
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    record["host_speed"] = hostload.host_speed()
     record["check"] = {**check_all(done_dirs, config["k"]),
                        "isolates_degraded": sum(degraded),
-                       "isolates_off_path": sum(off_path)}
+                       "isolates_off_path": sum(strayed)}
     return record
 
 

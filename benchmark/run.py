@@ -109,13 +109,14 @@ def main(argv=None) -> int:
 
 
 def execute(workload: str, seed: int, seconds: float, trace: bool, device,
-            scale: float = None) -> int:
+            scale: float = None, bench: dict = None) -> int:
     """The run past the look for a chip: set-up, window, check, the lines.
-    ``scale`` divides the cell's lengths (the CPU tests' tiny runs)."""
+    ``scale`` divides the cell's lengths (the CPU tests' tiny runs);
+    ``bench`` stands in for ``BENCHMARK.json`` (the tests' added cells)."""
     from benchmark.lib import spec, window
     from benchmark.lib.hostload import host_sample
 
-    bench = spec.load_benchmark()
+    bench = bench or spec.load_benchmark()
     before = host_sample()
     record = window.run(spec.cell(bench, workload), seed, seconds, trace,
                         device, _T_START, scale=scale)
@@ -151,11 +152,16 @@ def finish(bench, workload, record, trace, device, before) -> int:
                   f" ({e['reason']})", file=sys.stderr)
     diag = {"isolates": len(record["isolates"]), "window_s": record["window_s"],
             "written_bytes": written_bytes(),
+            "host_speed": record.get("host_speed"),
             "per_isolate": [{"wall_s": r["wall_s"], "stages": r["stages"],
                              "substages": r["substages"],
                              "stream_bins": r["stream"].get("bins"),
+                             "qc_pass_clusters": r["qc_pass_clusters"],
                              "grouping_calls": len(r["grouping"]),
-                             "overlap_dp_calls": len(r["overlap_dp"])}
+                             "overlap_dp_calls": len(r["overlap_dp"]),
+                             "sketch_hash_calls": len(r["sketch_hash"]),
+                             "sketch_grid_calls": len(r["sketch_grid"]),
+                             "host": r["host"]}
                             for r in record["isolates"]]}
     if record.get("trace"):
         diag["device_events"] = record["trace"]["device_events"]

@@ -141,3 +141,121 @@ def test_one_consensus_base_altered_where_it_is_written(monkeypatch, workload):
     monkeypatch.setattr(combine, "combine_clusters", altered)
     _, line, _ = dry_run(workload, seed=34)
     _failed_by(line, "consensus_minority_sites")
+
+
+# ---- the plasmid-rich configuration's path and faults (264 contigs) ----
+
+def test_the_path_check_reads_each_isolates_substages():
+    from benchmark.lib import instrument, window
+
+    def isolate(*substages, bins=3):
+        rec = instrument.Isolate()
+        rec.substages = {name: 0.1 for name in substages}
+        rec.stream = {"bins": bins}
+        return rec
+
+    product, sketched = "cluster-distance-product", "cluster-sketch-distances"
+    assert not window.off_path(isolate(product), True, "exact")
+    assert not window.off_path(isolate(sketched), True, "sketch")
+    assert window.off_path(isolate(sketched), True, "exact")
+    assert window.off_path(isolate(product), True, "sketch")
+    # verify mode runs both; a cluster that ran neither ran no path
+    assert window.off_path(isolate(product, sketched), True, "sketch")
+    assert window.off_path(isolate(product, sketched), True, "exact")
+    assert window.off_path(isolate(), True, "exact")
+    assert window.off_path(isolate(product, bins=0), True, "exact")
+    assert not window.off_path(isolate(product, bins=0), False, "exact")
+    assert window.distance_path({}) == "exact"
+    assert window.distance_path({"distance": "sketch"}) == "sketch"
+    with pytest.raises(ValueError):
+        window.distance_path({"distance": "approximate"})
+
+
+def test_a_sketch_configuration_forced_to_exact_distances():
+    from .helpers import PLASMID_RICH, config_run
+
+    forced = dict(PLASMID_RICH, env={"AUTOCYCLER_SKETCH_DISTANCE": "off"})
+    line, record = config_run(forced, seed=36)
+    _failed_by(line, "isolates_off_path")
+    assert line["check"]["isolates_off_path"]["value"] == len(record["isolates"]) >= 1
+    assert line["failed"] == len(record["isolates"])
+    for r in record["isolates"]:
+        assert "cluster-distance-product" in r["substages"]
+
+
+def test_two_plasmid_clusters_merged(monkeypatch):
+    # cluster's distances between the copies of two plasmids planted as
+    # near as those within one, and the refinement that would split a
+    # cluster with two contigs an assembly left out: both plasmids end in
+    # one cluster
+    from autocycler_tpu_torch.commands import cluster
+
+    from .helpers import PLASMID_RICH, config_run
+
+    real = cluster.compute_distances
+
+    def merged(graph, sequences, *a, **k):
+        dist, rec = real(graph, sequences, *a, **k)
+        pair = [s.id for s in sequences
+                if s.contig_name().startswith(("plasmid_1_", "plasmid_2_"))]
+        for a_ in pair:
+            for b in pair:
+                dist[(a_, b)] = min(dist[(a_, b)], 0.05)
+        return dist, rec
+
+    monkeypatch.setattr(cluster, "compute_distances", merged)
+    monkeypatch.setattr(cluster, "refine_auto_clusters",
+                        lambda tree, sequences, distances, clusters, *a: clusters)
+    line, record = config_run(PLASMID_RICH, seed=37)
+    _failed_by(line, "cluster_contigs_misplaced")
+    assert [r["qc_pass_clusters"] for r in record["isolates"]] == \
+        [10] * len(record["isolates"])
+
+
+def test_one_plasmid_consensus_base_altered(monkeypatch):
+    # the shortest record of the consensus is a plasmid of 2 kb with SNPs
+    from autocycler_tpu_torch.commands import combine
+
+    from .helpers import PLASMID_RICH, config_run
+
+    real = combine.combine_clusters
+
+    def altered(in_gfas, combined_gfa, combined_fasta, metrics):
+        real(in_gfas, combined_gfa, combined_fasta, metrics)
+        lines = open(combined_fasta).read().split("\n")
+        i = min(range(1, len(lines), 2), key=lambda j: len(lines[j]) or 1 << 60)
+        seq = lines[i]
+        j = len(seq) // 3
+        lines[i] = seq[:j] + {"A": "C", "C": "G", "G": "T", "T": "A"}[seq[j]] + seq[j + 1:]
+        open(combined_fasta, "w").write("\n".join(lines))
+
+    monkeypatch.setattr(combine, "combine_clusters", altered)
+    line, _ = config_run(PLASMID_RICH, seed=38)
+    _failed_by(line, "consensus_minority_sites")
+    assert line["check"]["consensus_replicon_faults"]["value"] == 0
+
+
+def test_the_reference_finds_eleven_replicons_with_plasmid_snps():
+    # the check alone, on the inputs: one replicon per chromosome or
+    # plasmid, each holding its 24 copies, and a consensus of each
+    # replicon's most common bases reads no minority site where one altered
+    # base reads one
+    from benchmark.gen import traffic as traffic_gen
+    from benchmark.reference import check
+
+    from .helpers import PLASMID_RICH
+
+    config = traffic_gen.scaled(PLASMID_RICH, PLASMID_RICH["cpu_scale"])
+    files = traffic_gen.isolate(config, {}, 39, 0)
+    inputs = {(name, header): seq for name, records in files for header, seq in records}
+    groups = check.replicons_tallied(inputs, config["k"])
+    assert len(groups) == 11
+    for g in groups:
+        kinds = {header.rsplit("_", 1)[0] for _, header in g.members}
+        assert len(g.members) == 24 and len(kinds) == 1
+        assert len(g.regions) >= 1      # every replicon carries SNPs
+        assert g.minority_sites(g.majority) == 0
+        j = next(i for i in range(len(g.majority)) if not g.variable[i])
+        flipped = g.majority[:j] + "ACGT"[("ACGT".index(g.majority[j]) + 1) % 4] \
+            + g.majority[j + 1:]
+        assert g.minority_sites(check.revcomp(flipped)) == 1

@@ -101,10 +101,13 @@ def test_stage_peaks_and_the_window_peak_from_the_allocator(monkeypatch):
     instr = instrument.Instrument(torch.device("cpu"), False)
     instr.trace = True
     instr.install()
-    instr.begin_isolate()
-    for name, peak in (("compress", 30), ("trim", 12), ("compress", 20)):
-        with instr.stage(name):
-            state["peak"] = max(state["peak"], peak)
+    try:
+        instr.begin_isolate()
+        for name, peak in (("compress", 30), ("trim", 12), ("compress", 20)):
+            with instr.stage(name):
+                state["peak"] = max(state["peak"], peak)
+    finally:
+        instr.uninstall()
     assert instr.current.stage_peaks == {"compress": 30, "trim": 12}
     assert state["resets"] == 3
     assert instr.peak_bytes() == 40  # the window's start, before any stage
